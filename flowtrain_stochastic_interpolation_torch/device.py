@@ -1,0 +1,21 @@
+"""Device selection shared by the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names another.
+
+    Raises ``RuntimeError`` when CUDA is asked for (explicitly or by default)
+    and no CUDA device is present: the port never carries on quietly on the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev

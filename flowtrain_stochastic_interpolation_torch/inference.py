@@ -1,0 +1,133 @@
+"""Sampling: noise -> fixed-step ODE integration -> categorical decode.
+
+Port of the unconditional fixed-step part of
+``flowtrain_stochastic_interpolation_tpu/inference.py``: :func:`make_sampler`
+and :func:`sample_unconditional`. The velocity is the UNet, ``model(x, t)``;
+the state may be bf16 (the model computes in its own dtype and the velocity is
+cast to the state's); the final state is decoded by cosine argmax.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from flowtrain_stochastic_interpolation_torch.device import resolve_device
+from flowtrain_stochastic_interpolation_torch.ops.embedding import decode
+from flowtrain_stochastic_interpolation_torch.solvers import (
+    solve_ode,
+    solve_ode_final,
+    stages,
+)
+
+
+@dataclass
+class SampleResult:
+    decoded: np.ndarray                 # [N, X, Y, Z] int64 (0-based table rows)
+    trajectory: Optional[np.ndarray]    # [n_frames, N, X, Y, Z, E] or None
+    seconds_per_batch: List[float] = field(default_factory=list)
+    nfe: Optional[int] = None
+
+
+def make_sampler(
+    model: nn.Module,
+    table: torch.Tensor,
+    *,
+    t0: float = 0.001,
+    tf: float = 1.0,
+    n_frames: int = 16,
+    substeps: int = 2,
+    method: str = "rk4",
+    keep_trajectory: bool = False,
+) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """Build ``sampler(x0) -> {"decoded", "nfe"[, "trajectory"]}`` for a UNet.
+
+    ``x0`` is the initial state ``[B, X, Y, Z, E]`` on the model's device, in
+    the state dtype. ``nfe`` is the number of velocity evaluations.
+    """
+    nfe = (n_frames - 1) * substeps * stages(method)
+
+    @torch.inference_mode()
+    def sampler(x0: torch.Tensor) -> Dict[str, torch.Tensor]:
+        kw = dict(t0=t0, tf=tf, n_frames=n_frames, substeps=substeps, method=method)
+        if keep_trajectory:
+            traj = solve_ode(model, x0, **kw)
+            final = traj[-1]
+        else:
+            final = solve_ode_final(model, x0, **kw)
+        out = {"decoded": decode(final, table), "nfe": nfe}
+        if keep_trajectory:
+            out["trajectory"] = traj
+        return out
+
+    return sampler
+
+
+def initial_noise(generator: torch.Generator, batch: int, data_shape: Tuple[int, int, int],
+                  embedding_dim: int, state_dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """One batch of N(0, 1) initial states ``[batch, *data_shape, E]``, drawn in f32."""
+    x0 = torch.randn((batch, *data_shape, embedding_dim), generator=generator,
+                     dtype=torch.float32, device=device)
+    return x0.to(state_dtype)
+
+
+def sample_unconditional(
+    model: nn.Module,
+    table: torch.Tensor,
+    *,
+    n_samples: int,
+    batch_size: int,
+    data_shape: Tuple[int, int, int],
+    embedding_dim: int,
+    seed: int = 100,
+    device=None,
+    state_dtype: torch.dtype = torch.float32,
+    verbose: bool = True,
+    **sampler_kwargs,
+) -> SampleResult:
+    """Batched unconditional generation from seeded noise.
+
+    ``device`` defaults to ``cuda`` and must hold ``model``; noise comes from
+    one ``torch.Generator`` on that device seeded with ``seed``, drawn batch
+    after batch (:func:`initial_noise`).
+    """
+    dev = resolve_device(device)
+    param = next(model.parameters())
+    if param.device.type != dev.type:
+        raise ValueError(f"the model is on {param.device}, the sampler on {dev}")
+    sampler = make_sampler(model, table.to(dev), **sampler_kwargs)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    decoded, trajs, times = [], [], []
+    n_batches = (n_samples - 1) // batch_size + 1
+    nfe = None
+    for b in range(n_batches):
+        bs = min(batch_size, n_samples - b * batch_size)
+        x0 = initial_noise(gen, bs, data_shape, embedding_dim, state_dtype, dev)
+        start = time.perf_counter()
+        out = sampler(x0)
+        batch_decoded = out["decoded"].cpu().numpy()  # waits for the device
+        dt = time.perf_counter() - start
+        times.append(dt)
+        if verbose:
+            print(f"batch {b + 1}/{n_batches}: solved in {dt:.2f}s")
+        decoded.append(batch_decoded)
+        if "trajectory" in out:
+            trajs.append(out["trajectory"].float().cpu().numpy())
+        nfe = out["nfe"]
+
+    return SampleResult(
+        decoded=np.concatenate(decoded, axis=0),
+        trajectory=np.concatenate(trajs, axis=1) if trajs else None,
+        seconds_per_batch=times,
+        nfe=nfe,
+    )

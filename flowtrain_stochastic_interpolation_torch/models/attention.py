@@ -1,0 +1,123 @@
+"""Attention blocks over flattened voxel tokens, channels-last in and out.
+
+Port of ``flowtrain_stochastic_interpolation_tpu/models/attention.py``:
+
+* :class:`LinearAttention` — softmax-q / softmax-k linear attention with 4
+  memory KV tokens, at every UNet stage but the innermost. On CUDA, with at
+  least 4096 tokens and a folded width ``h·d`` that is a multiple of 128, it
+  runs the folded kernels K1 and K2 (:mod:`ops.linear_attention`) on the
+  ``[B, N, h·d]`` projection in place, whose wrappers raise on anything but
+  bf16; otherwise the einsum form with concatenated memory KV.
+* :class:`Attention` — full softmax attention with memory KV as einsum +
+  softmax (the flagship's innermost stage has 4³ = 64 tokens).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from flowtrain_stochastic_interpolation_torch.models.layers import Dense, RMSNorm
+from flowtrain_stochastic_interpolation_torch.ops.linear_attention import (
+    linear_attention_folded,
+)
+
+_FOLDED_LINEAR_MIN_TOKENS = 4096
+
+
+def _memory_kv(mem_kv: torch.Tensor, b: int, dtype: torch.dtype):
+    """``[2, h, n_mem, d]`` parameter -> keys and values ``[B, n_mem, h, d]``."""
+    mem = mem_kv.to(dtype)
+    expand = lambda t: t.transpose(0, 1).unsqueeze(0).expand(b, -1, -1, -1)
+    return expand(mem[0]), expand(mem[1])
+
+
+class _TokenAttention(nn.Module):
+    """Shared parameters: input RMSNorm, bias-free qkv projection, memory KV."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_mem_kv: int = 4,
+                 *, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.heads, self.dim_head, self.num_mem_kv = heads, dim_head, num_mem_kv
+        hidden = heads * dim_head
+        self.norm = RMSNorm(dim, device=device)
+        self.to_qkv = Dense(dim, hidden * 3, use_bias=False, dtype=dtype, device=device)
+        self.mem_kv = nn.Parameter(torch.empty(2, heads, num_mem_kv, dim_head, device=device))
+        self.to_out = Dense(hidden, dim, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.mem_kv.normal_(0.0, 1.0, generator=generator)
+
+
+class LinearAttention(_TokenAttention):
+    """O(N) linear attention: q softmaxed over each head's features, k over tokens."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_mem_kv: int = 4,
+                 *, fused_folded: bool = True, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__(dim, heads, dim_head, num_mem_kv, dtype=dtype, device=device)
+        self.fused_folded = fused_folded
+        self.out_norm = RMSNorm(dim, device=device)
+
+    def takes_folded(self, qkv: torch.Tensor) -> bool:
+        """The folded-kernel dispatch rule, for a ``[B, N, 3·h·d]`` projection."""
+        hidden = self.heads * self.dim_head
+        return (
+            self.fused_folded
+            and qkv.is_cuda
+            and qkv.shape[1] >= _FOLDED_LINEAR_MIN_TOKENS
+            and hidden % 128 == 0
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, spatial = x.shape[0], x.shape[1:-1]
+        hidden = self.heads * self.dim_head
+        qkv = self.to_qkv(self.norm(x)).reshape(b, -1, 3 * hidden)
+        if self.takes_folded(qkv):
+            out = self.attend_folded(qkv)
+        else:
+            out = self.attend_einsum(qkv)
+        out = self.to_out(out.reshape(b, *spatial, hidden))
+        return self.out_norm(out)
+
+    def attend_folded(self, qkv: torch.Tensor) -> torch.Tensor:
+        """K1 + K2 on the column slices of the projection: ``[B, N, h·d]``."""
+        hidden = self.heads * self.dim_head
+        q, k, v = qkv[..., :hidden], qkv[..., hidden:2 * hidden], qkv[..., 2 * hidden:]
+        mem = self.mem_kv.to(qkv.dtype)
+        # [h, n_mem, d] -> [n_mem, h·d], the folded layout
+        fold = lambda t: t.transpose(0, 1).reshape(self.num_mem_kv, hidden).contiguous()
+        return linear_attention_folded(q, k, v, fold(mem[0]), fold(mem[1]), heads=self.heads)
+
+    def attend_einsum(self, qkv: torch.Tensor) -> torch.Tensor:
+        """The einsum form with concatenated memory KV: ``[B, N, h, d]``."""
+        b, n = qkv.shape[:2]
+        qkv = qkv.reshape(b, n, 3, self.heads, self.dim_head)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        mk, mv = _memory_kv(self.mem_kv, b, q.dtype)
+        k = torch.cat([mk, k], dim=1)
+        v = torch.cat([mv, v], dim=1)
+        q = torch.softmax(q, dim=-1) * self.dim_head**-0.5
+        k = torch.softmax(k, dim=1)
+        context = torch.einsum("bnhd,bnhe->bhde", k, v)
+        return torch.einsum("bhde,bnhd->bnhe", context, q)
+
+
+class Attention(_TokenAttention):
+    """Full softmax attention with memory KV, as einsum + softmax."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, spatial = x.shape[0], x.shape[1:-1]
+        hidden = self.heads * self.dim_head
+        qkv = self.to_qkv(self.norm(x)).reshape(b, -1, 3, self.heads, self.dim_head)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        mk, mv = _memory_kv(self.mem_kv, b, q.dtype)
+        k = torch.cat([mk, k], dim=1)
+        v = torch.cat([mv, v], dim=1)
+        logits = torch.einsum("bihd,bjhd->bhij", q, k) * self.dim_head**-0.5
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("bhij,bjhd->bihd", probs, v)
+        return self.to_out(out.reshape(b, *spatial, hidden))

@@ -1,0 +1,204 @@
+"""Building blocks of the 3-D UNet, channels-last ``[B, X, Y, Z, C]``.
+
+Port of ``flowtrain_stochastic_interpolation_tpu/models/layers.py``. Parameters
+are stored in float32; each layer computes in its ``dtype`` (bfloat16 on the
+flagship) by casting its input and weights at the call, as the flax layers'
+``dtype`` does. 1×1 convolutions are channel :class:`Dense` layers.
+
+The JAX package's 3³ and 7³ convolutions pick among XLA formulations for the
+TPU (``ops/fat_conv.py``, ``ops/packed_conv.py``); all compute the same SAME
+convolution, which here is ``F.conv3d`` (cuDNN on the card) in the
+``channels_last_3d`` memory format that the ``[B, X, Y, Z, C]`` layout is.
+
+Parameter names follow the flax modules' (``kernel`` becomes ``weight``), so
+:func:`models.persistence.params_from_jax` maps one tree onto the other.
+Initialisers follow flax's defaults: LeCun-normal kernels, zero biases, unit
+RMSNorm gains.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from flowtrain_stochastic_interpolation_torch.models.resize import resize3d
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
+    # flax's lecun_normal: truncated normal (±2σ) with variance 1 / fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        w.mul_(std)
+
+
+class Dense(nn.Module):
+    """Channel dense layer: flax ``nn.Dense`` with the kernel stored as ``[out, in]``."""
+
+    def __init__(self, in_features: int, out_features: int, *, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if use_bias else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _lecun_normal_(self.weight, self.weight.shape[1], generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv3d(nn.Module):
+    """3-D SAME convolution (stride 1, odd kernel, with bias) on ``[B, X, Y, Z, C]``.
+
+    The weight is torch's ``[out, in, k, k, k]`` (the flax kernel is
+    ``[k, k, k, in, out]``).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, *,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.padding = kernel // 2
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel, kernel, kernel, device=device)
+        )
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        fmt = torch.channels_last_3d
+        xc = x.to(dt).permute(0, 4, 1, 2, 3).contiguous(memory_format=fmt)
+        w = self.weight.to(dt).contiguous(memory_format=fmt)
+        y = F.conv3d(xc, w, self.bias.to(dt), padding=self.padding)
+        return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class RMSNorm(nn.Module):
+    """RMS normalisation over channels with a learnable gain.
+
+    ``x / max(‖x‖, 1e-12) * g * sqrt(C)``: the norm is taken in float32, the
+    division and the gain in the input's dtype.
+    """
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.dim = dim
+        self.g = nn.Parameter(torch.ones(dim, device=device))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        nn.init.ones_(self.g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        norm = torch.linalg.vector_norm(x.float(), dim=-1, keepdim=True)
+        normed = x / norm.clamp_min(1e-12).to(x.dtype)
+        return normed * (self.g * math.sqrt(self.dim)).to(x.dtype)
+
+
+class Upsample(nn.Module):
+    """×2 align-corners trilinear upsample + 3³ conv."""
+
+    def __init__(self, ch_in: int, ch_out: int, *, dtype=None, device=None):
+        super().__init__()
+        self.conv = Conv3d(ch_in, ch_out, 3, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(resize3d(x, 2.0))
+
+
+class Downsample(nn.Module):
+    """×0.5 align-corners trilinear downsample + 1×1 conv."""
+
+    def __init__(self, ch_in: int, ch_out: int, *, dtype=None, device=None):
+        super().__init__()
+        self.conv = Dense(ch_in, ch_out, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(resize3d(x, 0.5))
+
+
+class LearnedFourierEmbedding(nn.Module):
+    """Trainable Fourier features ``cos(t·f + φ)·√2``, f ~ N(0, bw²), φ ~ U(0, 1)."""
+
+    def __init__(self, num_channels: int, bandwidth: float = 100.0, device=None):
+        super().__init__()
+        self.bandwidth = bandwidth
+        self.freqs = nn.Parameter(torch.empty(num_channels, device=device))
+        self.phases = nn.Parameter(torch.empty(num_channels, device=device))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.freqs.normal_(0.0, 1.0, generator=generator).mul_(self.bandwidth)
+            self.phases.uniform_(0.0, 1.0, generator=generator)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        y = t[:, None] * self.freqs[None, :] + self.phases[None, :]
+        return torch.cos(y) * math.sqrt(2.0)
+
+
+class TimeMLP(nn.Module):
+    """LearnedFourier embed → Dense(time_dim) → exact GELU → Dense(time_dim)."""
+
+    def __init__(self, time_resolution: int, time_dim: int, *, bandwidth: float = 100.0,
+                 dtype=None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.embed = LearnedFourierEmbedding(time_resolution, bandwidth, device=device)
+        self.fc1 = Dense(time_resolution, time_dim, dtype=dtype, device=device)
+        self.fc2 = Dense(time_dim, time_dim, dtype=dtype, device=device)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        emb = self.embed(t)
+        emb = emb.to(self.dtype or emb.dtype)
+        return self.fc2(F.gelu(self.fc1(emb), approximate="none"))
+
+
+class Block(nn.Module):
+    """conv3 → RMSNorm → FiLM(scale+1, shift) → SiLU (dropout is off in eval)."""
+
+    def __init__(self, dim_in: int, dim_out: int, *, dtype=None, device=None):
+        super().__init__()
+        self.proj = Conv3d(dim_in, dim_out, 3, dtype=dtype, device=device)
+        self.norm = RMSNorm(dim_out, device=device)
+
+    def forward(self, x: torch.Tensor,
+                scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        x = self.norm(self.proj(x))
+        if scale_shift is not None:
+            scale, shift = scale_shift
+            x = x * (scale + 1.0) + shift
+        return F.silu(x)
+
+
+class ResnetBlock(nn.Module):
+    """Two Blocks with a time-FiLM on the first, plus a 1×1 residual."""
+
+    def __init__(self, dim_in: int, dim_out: int, time_dim: int, *, dtype=None, device=None):
+        super().__init__()
+        self.mlp = Dense(time_dim, dim_out * 2, dtype=dtype, device=device)
+        self.block1 = Block(dim_in, dim_out, dtype=dtype, device=device)
+        self.block2 = Block(dim_out, dim_out, dtype=dtype, device=device)
+        self.res_conv = (Dense(dim_in, dim_out, dtype=dtype, device=device)
+                         if dim_in != dim_out else None)
+
+    def forward(self, x: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
+        h_t = self.mlp(F.silu(time_emb))
+        h_t = h_t.reshape(h_t.shape[0], 1, 1, 1, h_t.shape[-1])
+        h = self.block2(self.block1(x, tuple(torch.chunk(h_t, 2, dim=-1))))
+        if self.res_conv is not None:
+            x = self.res_conv(x)
+        return h + x

@@ -1,0 +1,186 @@
+"""The 3-D attention UNet that predicts the stochastic-interpolation velocity.
+
+Port of ``flowtrain_stochastic_interpolation_tpu/models/unet.py::UNet3D``
+(forward, eval mode): 7³ init conv, per-stage [res, res, attn, resample]
+downs, full-attention bottleneck, mirrored ups with two skip concats per
+stage, a final res block on the concat with the init residual, and a 1×1 out
+conv. Layout is channels-last ``[B, X, Y, Z, C]``; time is a ``[B]`` vector;
+the output is float32.
+
+Submodules carry the flax module names (``downs_0_block1``, ``mid_attn``,
+``ups_2_upsample``, ...), so the JAX package's parameter tree maps onto this
+module's ``state_dict`` leaf by leaf (:func:`models.persistence.params_from_jax`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from flowtrain_stochastic_interpolation_torch.config import ModelConfig
+from flowtrain_stochastic_interpolation_torch.device import resolve_device
+from flowtrain_stochastic_interpolation_torch.models.attention import (
+    Attention,
+    LinearAttention,
+)
+from flowtrain_stochastic_interpolation_torch.models.layers import (
+    Conv3d,
+    Dense,
+    Downsample,
+    ResnetBlock,
+    TimeMLP,
+    Upsample,
+)
+
+
+def _cast_tuple(v, length: int) -> tuple:
+    if isinstance(v, (tuple, list)):
+        if len(v) != length:
+            raise ValueError(f"expected {length} values, got {len(v)}")
+        return tuple(v)
+    return (v,) * length
+
+
+class UNet(nn.Module):
+    """3-D attention UNet; the arguments mirror the flax module's attributes."""
+
+    def __init__(
+        self,
+        dim: int,
+        dim_mults: Sequence[int] = (1, 2, 4, 8),
+        data_channels: int = 3,
+        time_resolution: int = 64,
+        time_bandwidth: float = 100.0,
+        attn_dim_head: Union[int, Sequence[int]] = 64,
+        attn_heads: Union[int, Sequence[int]] = 4,
+        full_attn: Optional[Sequence[bool]] = None,
+        fused_folded_attn: bool = True,
+        dtype: Optional[torch.dtype] = None,
+        device=None,
+    ):
+        super().__init__()
+        self.dim = dim
+        self.dim_mults = tuple(dim_mults)
+        self.dtype = dtype
+        n_stages = len(self.dim_mults)
+        dims = [dim] + [dim * m for m in self.dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        full = tuple(full_attn) if full_attn else (False,) * (n_stages - 1) + (True,)
+        heads = _cast_tuple(attn_heads, n_stages)
+        dim_heads = _cast_tuple(attn_dim_head, n_stages)
+        time_dim = dim * 4
+        kw = dict(dtype=dtype, device=device)
+
+        def attn(ch, is_full, h, dh):
+            if is_full:
+                return Attention(ch, h, dh, **kw)
+            return LinearAttention(ch, h, dh, fused_folded=fused_folded_attn, **kw)
+
+        self.init_conv = Conv3d(data_channels, dim, 7, **kw)
+        self.time_mlp = TimeMLP(time_resolution, time_dim, bandwidth=time_bandwidth, **kw)
+
+        skip_dims = []
+        for i, (dim_in, dim_out) in enumerate(in_out):
+            setattr(self, f"downs_{i}_block1", ResnetBlock(dim_in, dim_in, time_dim, **kw))
+            setattr(self, f"downs_{i}_block2", ResnetBlock(dim_in, dim_in, time_dim, **kw))
+            setattr(self, f"downs_{i}_attn", attn(dim_in, full[i], heads[i], dim_heads[i]))
+            skip_dims += [dim_in, dim_in]
+            last = i >= n_stages - 1
+            setattr(self, f"downs_{i}_downsample",
+                    Conv3d(dim_in, dim_out, 3, **kw) if last else Downsample(dim_in, dim_out, **kw))
+
+        mid_dim = dims[-1]
+        self.mid_block1 = ResnetBlock(mid_dim, mid_dim, time_dim, **kw)
+        self.mid_attn = Attention(mid_dim, heads[-1], dim_heads[-1], **kw)
+        self.mid_block2 = ResnetBlock(mid_dim, mid_dim, time_dim, **kw)
+
+        ch = mid_dim
+        for i, ((dim_in, dim_out), fa, hh, dh) in enumerate(
+            zip(in_out[::-1], full[::-1], heads[::-1], dim_heads[::-1])
+        ):
+            setattr(self, f"ups_{i}_block1",
+                    ResnetBlock(ch + skip_dims.pop(), dim_out, time_dim, **kw))
+            setattr(self, f"ups_{i}_block2",
+                    ResnetBlock(dim_out + skip_dims.pop(), dim_out, time_dim, **kw))
+            setattr(self, f"ups_{i}_attn", attn(dim_out, fa, hh, dh))
+            last = i == n_stages - 1
+            setattr(self, f"ups_{i}_upsample",
+                    Conv3d(dim_out, dim_in, 3, **kw) if last else Upsample(dim_out, dim_in, **kw))
+            ch = dim_in
+
+        self.final_res_block = ResnetBlock(ch + dim, dim, time_dim, **kw)
+        self.final_conv = Dense(dim, data_channels, **kw)
+        self.n_stages = n_stages
+
+    @classmethod
+    def from_config(cls, cfg: ModelConfig, *, device=None) -> "UNet":
+        """The UNet of a :class:`config.ModelConfig` (unconditional, learned-Fourier time).
+
+        Built on ``cuda`` unless ``device`` names another (:func:`device.resolve_device`).
+        """
+        if cfg.conditional or cfg.self_condition or cfg.time_sin_pos or not cfg.time_learned_emb:
+            raise NotImplementedError(
+                "the port has the unconditional UNet with LearnedFourier time only"
+            )
+        if not cfg.attn_enabled:
+            raise NotImplementedError("the port's UNet always has attention")
+        return cls(
+            dim=cfg.dim, dim_mults=cfg.dim_mults, data_channels=cfg.data_channels,
+            time_resolution=cfg.time_resolution, time_bandwidth=cfg.time_bandwidth,
+            attn_dim_head=cfg.attn_dim_head, attn_heads=cfg.attn_heads,
+            full_attn=cfg.full_attn, fused_folded_attn=cfg.fused_folded_attn,
+            dtype=getattr(torch, cfg.dtype), device=resolve_device(device),
+        )
+
+    @property
+    def downsample_factor(self) -> int:
+        return 2 ** (self.n_stages - 1)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Seeded flax-style initialisation of every parameter."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+        for d in x.shape[1:4]:
+            if d % self.downsample_factor:
+                raise ValueError(
+                    f"spatial dims {tuple(x.shape[1:4])} must be divisible by "
+                    f"{self.downsample_factor}"
+                )
+        n = self.n_stages
+        x = x.to(self.dtype or x.dtype)
+        x = self.init_conv(x)
+        r = x
+        t = self.time_mlp(time.to(x.dtype))
+
+        skips = []
+        for i in range(n):
+            x = getattr(self, f"downs_{i}_block1")(x, t)
+            skips.append(x)
+            x = getattr(self, f"downs_{i}_block2")(x, t)
+            x = getattr(self, f"downs_{i}_attn")(x) + x
+            skips.append(x)
+            x = getattr(self, f"downs_{i}_downsample")(x)
+
+        x = self.mid_block1(x, t)
+        x = self.mid_attn(x) + x
+        x = self.mid_block2(x, t)
+
+        for i in range(n):
+            x = torch.cat([x, skips.pop()], dim=-1)
+            x = getattr(self, f"ups_{i}_block1")(x, t)
+            x = torch.cat([x, skips.pop()], dim=-1)
+            x = getattr(self, f"ups_{i}_block2")(x, t)
+            x = getattr(self, f"ups_{i}_attn")(x) + x
+            x = getattr(self, f"ups_{i}_upsample")(x)
+
+        x = torch.cat([x, r], dim=-1)
+        x = self.final_res_block(x, t)
+        return self.final_conv(x).float()
+
+
+UNet3D = UNet
