@@ -7,31 +7,47 @@ Phases, each printed on one flushed line with the seconds since start:
 
 0. device: the card's name and power limit (nvidia-smi) and the device count;
    no CUDA device -> exit 1 with a message that says so;
-1. build: the one nvcc call for ``csrc/linear_attention.cu``, its wall seconds
-   and the ``-Xptxas -v`` register / shared-memory / spill summary;
+1. build: one nvcc call per source (``csrc/linear_attention.cu`` and
+   ``csrc/flash_attention.cu``), started together; their wall seconds and the
+   ``-Xptxas -v`` register / shared-memory / spill summary;
 2. kernel check: K1 (folded context) and K2 (folded projection) against their
    plain PyTorch versions on the card, at batch 8 x {262144, 32768, 4096}
    tokens x 128 (the 64³, 32³ and 16³ stages), a ragged 4096 + 37, a
    cross-head logit spread and a 64³ case whose memory tokens carry most
-   of the softmax weight; each case is held to a tolerance scaled to
-   its own values;
-3. kernel times: each kernel and its plain version at the three stage shapes
-   (CUDA events around 20 back-to-back launches after a warm-up, median of
-   5 such rounds) beside the card's bound;
-4. main path: the ``unconditional_64`` UNet at full width, seeded random
-   weights, bf16 compute, through ``sample_unconditional`` at 64³ x batch 2,
-   RK4 with 3 frames and 1 substep (8 velocity evaluations). The launch
-   counts of K1 and K2 are set to 0 just before and read just after: each
-   must be 6 stages x 8 evaluations = 48. Then a reference check: a 16³
-   forward on the card (bf16, kernels) against the same weights in f32 on the
-   CPU (plain path);
-5. forward at the benchmark's batch: b8 x 64³ UNet forwards, 1 warm-up and 3
+   of the softmax weight; K3 (flash attention) against its plain version,
+   out and lse, at b8 and b4 x 4096 queries x 4100 keys x 4 heads x 32 (the
+   fa16 stage), a ragged 1024 + 37 queries x 1024 + 41 keys, and a peaked
+   softmax (q x 8); each case is held to a tolerance scaled to its own values;
+3. kernel times: each kernel, its plain version and (K3) one PyTorch call of
+   the same function (``scaled_dot_product_attention``) at the main path's
+   shapes (CUDA events around 20 back-to-back launches after a warm-up,
+   median of 5 such rounds) beside the card's bound;
+4. backwards: the flash backward and the folded backward in bf16 against
+   autograd of the f32 plain versions at 16³ b1;
+5. sampling, the first slice's main path: the ``unconditional_64`` UNet at
+   full width, seeded random weights, bf16 compute, through
+   ``sample_unconditional`` at 64³ x batch 2, RK4 with 3 frames and 1 substep
+   (8 velocity evaluations); K1 and K2 launch 6 times per evaluation. Then the
+   same for the fa16 configuration (full attention at 16³ and 4³) with 2 frames
+   (4 evaluations): K3 2, K1 4 and K2 4 times per evaluation. Reference checks:
+   a 16³ forward of the flagship and a 64³ forward of fa16 on the card (bf16,
+   kernels) against the same weights in f32 on the CPU (plain path);
+6. forward at the benchmark's batch: b8 x 64³ UNet forwards, 1 warm-up and 3
    timed, each closed by ``torch.cuda.synchronize()``; then a
-   ``torch.profiler`` breakdown of one forward by device time.
+   ``torch.profiler`` breakdown of one forward by device time;
+7. training, this slice's main path, for the flagship and then for fa16:
+   ``init_train_state`` and ``make_train_step`` at 64³, micro-batch 4 x
+   accumulation 2, on synthetic batches generated on the card; 2 warm-up and 8
+   timed micro-steps, each closed by ``torch.cuda.synchronize()``. Each prints
+   the median ms per micro-step, peak memory, the loss and gradient norm (which
+   must be finite), the launches per micro-step, and that the params changed on
+   the accumulation boundaries only; fa16 adds a ``torch.profiler`` breakdown
+   of one micro-step.
 
-Then one JSON line per kernel (``{"kernels": [...]}``), the nvidia-smi line,
-and last ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
-before that last line. Imports nothing of JAX.
+The launch counts are set to 0 just before each main-path run (phases 5 and
+7) and read just after it. Then one JSON line per kernel (``{"kernels":
+[...]}``), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero before that last line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -45,13 +61,18 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from flowtrain_stochastic_interpolation_torch.config import unconditional_64
+from flowtrain_stochastic_interpolation_torch.data.synthetic import synthetic_geology_batch
 from flowtrain_stochastic_interpolation_torch.inference import sample_unconditional
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build
+from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
 from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
+from flowtrain_stochastic_interpolation_torch.train.loop import init_train_state
+from flowtrain_stochastic_interpolation_torch.train.steps import make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
@@ -60,6 +81,10 @@ PEAK_BF16_FLOP_PER_S = 989e12
 BATCH = 8
 STAGE_TOKENS = (262144, 32768, 4096)  # 64³, 32³, 16³
 HEADS, WIDTH, N_MEM = 4, 128, 4
+HEAD_DIM = WIDTH // HEADS
+# the fa16 configuration: full attention at 16³ (stage 2) and at 4³ (stage 4)
+FA16 = (False, False, True, False, True)
+FLASH_TOKENS = (4096, 4096 + N_MEM)   # 16³ queries, and keys with the memory tokens
 # kernel vs plain version, scaled to each case's values (they shrink as
 # 1/sqrt(N) with the tokens): the same bf16 roundings, but K1 rounds exp(k - m)
 # with each chunk's max where the plain version uses the global max, sums run
@@ -67,21 +92,35 @@ HEADS, WIDTH, N_MEM = 4, 128, 4
 # relative each). Elementwise |kernel - plain| <= atol_frac·RMS + rtol·|plain|,
 # with RMS that of the plain values on the head-diagonal blocks, and
 # ||kernel - plain|| <= rel_l2·||plain||; K1 must be exactly 0 off those blocks.
+# K3 and its plain version both compute in f32 and differ in the order of the
+# sums only, then round out to bf16: one bf16 ulp (2^-7·|plain|) plus
+# 1e-3·RMS elementwise; lse (f32) within 1e-4 + 1e-5·|plain|.
 TOL = {
     "folded_context": dict(atol_frac=3e-2, rtol=1e-2, rel_l2=1e-2),
     "folded_project": dict(atol_frac=3e-2, rtol=2e-2, rel_l2=1e-2),
+    "flash_attention": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
 }
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 # the memory-heavy case: mem_k shifted up so that the 4 memory tokens outweigh
 # 262,144 standard-normal keys (e^12 ≈ 1.6e5)
 MEM_SHIFT = 12.0
 # the bf16 forward on the card against the f32 forward on the CPU: relative L2
 # error (measured ~1e-2 with the CPU's plain path in bf16)
 FORWARD_REL_TOL = 3e-2
-SOURCE = "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu"
+# a bf16 gradient through the kernels against autograd of the f32 plain version
+BACKWARD_REL_TOL = 2e-2
+TRAIN_MICRO_BATCH, TRAIN_ACCUM, TRAIN_WARMUP, TRAIN_STEPS = 4, 2, 2, 8
+SOURCES = {
+    "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
+    "folded_project": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
+    "flash_attention": "flowtrain_stochastic_interpolation_torch/csrc/flash_attention.cu",
+}
 REPLACES = {
     "folded_context": "flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py:218",
     "folded_project": "flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py:283",
+    "flash_attention": "flowtrain_stochastic_interpolation_tpu/ops/flash_attention.py:33",
 }
+KERNELS = tuple(REPLACES)
 
 _T0 = time.perf_counter()
 
@@ -109,6 +148,19 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def reset_counts() -> None:
+    la.reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    return {**la.launch_counts, **fa.launch_counts}
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
 # ---------------------------------------------------------------------------
 # Kernel inputs, checks and times
 # ---------------------------------------------------------------------------
@@ -133,6 +185,17 @@ def make_inputs(batch: int, n: int, seed: int, spread: bool = False, mem_shift: 
     return q, k, v, mem[0].contiguous(), mem[1].contiguous()
 
 
+def make_attention_inputs(batch: int, n: int, m: int, seed: int, q_scale: float = 1.0):
+    """q as a column slice of a [B, N, 3, h, d] bf16 projection (as the UNet hands
+    it over); k and v contiguous [B, M, h, d] bf16 (the memory concatenation)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(batch, n, 3, HEADS, HEAD_DIM, generator=gen, device="cuda")
+    qkv[:, :, 0] *= q_scale
+    k = torch.randn(batch, m, HEADS, HEAD_DIM, generator=gen, device="cuda")
+    v = torch.randn(batch, m, HEADS, HEAD_DIM, generator=gen, device="cuda")
+    return qkv.to(torch.bfloat16)[:, :, 0], k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
 def head_diagonal(width: int, device) -> torch.Tensor:
     """[width, width] mask of the per-head diagonal blocks."""
     head = torch.arange(width, device=device) // (width // HEADS)
@@ -155,12 +218,12 @@ def compare(name: str, label: str, got: torch.Tensor, want: torch.Tensor) -> flo
     diff = (got - want).abs()
     n_bad = int((diff > atol + tol["rtol"] * want.abs()).sum().item())
     max_abs = diff.max().item()
-    rel_l2 = ((got - want).norm() / want.norm()).item()
+    rel = rel_l2(got, want)
     say("kernel check", f"{name} {label}: RMS {rms:.3e}, max abs err {max_abs:.3e} "
-        f"({max_abs / rms:.3e} of RMS), relative L2 {rel_l2:.3e} (limit {tol['rel_l2']:g}); "
+        f"({max_abs / rms:.3e} of RMS), relative L2 {rel:.3e} (limit {tol['rel_l2']:g}); "
         f"{n_bad} outside {tol['atol_frac']:g}·RMS + {tol['rtol']:g}·|plain|")
     check(n_bad == 0, f"{name} {label}: {n_bad} elements outside the tolerance")
-    check(rel_l2 <= tol["rel_l2"], f"{name} {label}: relative L2 error {rel_l2:.3e}")
+    check(rel <= tol["rel_l2"], f"{name} {label}: relative L2 error {rel:.3e}")
     return max_abs
 
 
@@ -170,7 +233,7 @@ def phase_kernel_check():
               (f"b{BATCH} x 4096 cross-head spread", BATCH, 4096, dict(spread=True)),
               (f"b{BATCH} x {STAGE_TOKENS[0]} memory-heavy (mem_k + {MEM_SHIFT:g})", BATCH,
                STAGE_TOKENS[0], dict(mem_shift=MEM_SHIFT))]
-    worst = {"folded_context": 0.0, "folded_project": 0.0}
+    worst = {name: 0.0 for name in KERNELS}
     for i, (label, b, n, options) in enumerate(cases):
         q, k, v, mk, mv = make_inputs(b, n, seed=i, **options)
         ctx_plain = la.folded_context_plain(k, v, mk, mv, HEADS)
@@ -182,6 +245,26 @@ def phase_kernel_check():
                                 ("folded_project", out, out_plain)):
             worst[name] = max(worst[name], compare(name, label, got, want))
         del q, k, v, ctx, ctx_plain, out, out_plain
+
+    n, m = FLASH_TOKENS
+    flash_cases = [(f"b{b} x {n} q x {m} kv", b, n, m, 1.0) for b in (BATCH, TRAIN_MICRO_BATCH)]
+    flash_cases += [("b2 x 1024+37 q x 1024+41 kv ragged", 2, 1024 + 37, 1024 + 41, 1.0),
+                    (f"b{BATCH} x {n} q x {m} kv peaked (q x 8)", BATCH, n, m, 8.0)]
+    for i, (label, b, nq, nk, q_scale) in enumerate(flash_cases):
+        q, k, v = make_attention_inputs(b, nq, nk, seed=50 + i, q_scale=q_scale)
+        out, lse = fa.flash_attention_forward(q, k, v)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       compare("flash_attention", label, out, want_out))
+        lse_err = (lse - want_lse).abs()
+        n_bad = int((lse_err > LSE_TOL["atol"] + LSE_TOL["rtol"] * want_lse.abs()).sum().item())
+        say("kernel check", f"flash_attention {label}: lse max abs err "
+            f"{lse_err.max().item():.3e}; {n_bad} outside {LSE_TOL['atol']:g} + "
+            f"{LSE_TOL['rtol']:g}·|plain|")
+        check(bool(torch.isfinite(lse).all()) and n_bad == 0,
+              f"flash_attention {label}: lse outside the tolerance")
+        del q, k, v, out, lse, want_out, want_lse
     return worst
 
 
@@ -229,64 +312,167 @@ def phase_kernel_times():
             ms = time_ms(kernel)
             plain_ms = time_ms(plain)
             bound_ms, bound_by = bound(nbytes, products)
-            rows[(name, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            rows[(name, BATCH, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by, library_ms=None)
             say("kernel times", f"{name} b{BATCH} x {n}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms ({bound_by}), library null")
         del q, k, v, ctx
+
+    n, m = FLASH_TOKENS
+    for b in (BATCH, TRAIN_MICRO_BATCH):
+        q, k, v = make_attention_inputs(b, n, m, seed=200)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's [B, h, tokens, d]
+        nbytes = 2 * (2 * b * n + 2 * b * m) * WIDTH + 4 * b * HEADS * n
+        flops = 4.0 * b * HEADS * n * m * HEAD_DIM
+        ms = time_ms(lambda: fa.flash_attention_forward(q, k, v))
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows[("flash_attention", b, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                               bound_by=bound_by, library_ms=library_ms)
+        say("kernel times", f"flash_attention b{b} x {n} q x {m} kv x {HEADS} x {HEAD_DIM}: "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"library (scaled_dot_product_attention) {library_ms:.4f} ms")
+        del q, k, v, qt, kt, vt
     return rows
 
 
+def phase_backwards():
+    """bf16 gradients through the kernels against autograd of the f32 plain versions, 16³ b1."""
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    n, m = FLASH_TOKENS
+    q, k, v = make_attention_inputs(1, n, m, seed=301)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    ours = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*ours).backward(dout)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention_plain(*ref)[0].backward(dout.float())
+    errs = [rel_l2(a.grad, b.grad) for a, b in zip(ours, ref)]
+    say("backwards", f"flash b1 x {n} q x {m} kv, bf16 vs autograd of the f32 plain version: "
+        f"relative L2 dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+        f"(limit {BACKWARD_REL_TOL:g})")
+    check(max(errs) <= BACKWARD_REL_TOL, f"flash backward relative L2 {max(errs):.3e}")
+
+    q, k, v, mk, mv = make_inputs(1, n, seed=302)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    ours = [t.detach().clone().requires_grad_() for t in (q, k, v, mk, mv)]
+    la.linear_attention_folded(*ours, heads=HEADS).backward(dout)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v, mk, mv)]
+    b = ref[0].shape[0]
+    split = lambda t: t.reshape(t.shape[0], -1, HEADS, HEAD_DIM)
+    kk = torch.cat([ref[3].expand(b, -1, -1), ref[1]], dim=1)
+    vv = torch.cat([ref[4].expand(b, -1, -1), ref[2]], dim=1)
+    ctx = torch.einsum("bnhd,bnhe->bhde", torch.softmax(split(kk), dim=1), split(vv))
+    out = torch.einsum("bnhd,bhde->bnhe", torch.softmax(split(ref[0]), dim=-1) * HEAD_DIM**-0.5,
+                       ctx)
+    out.reshape(ref[0].shape).backward(dout.float())
+    errs = [rel_l2(a.grad, r.grad) for a, r in zip(ours, ref)]
+    say("backwards", f"folded (K1 + K2, closed_form_bf16) b1 x {n} x {WIDTH}, bf16 vs autograd "
+        f"of the f32 einsum composition: relative L2 " +
+        ", ".join(f"{g} {e:.3e}" for g, e in zip(("dq", "dk", "dv", "dmk", "dmv"), errs)) +
+        f" (limit {BACKWARD_REL_TOL:g})")
+    check(max(errs) <= BACKWARD_REL_TOL, f"folded backward relative L2 {max(errs):.3e}")
+
+
 # ---------------------------------------------------------------------------
-# The main path
+# Sampling (the first slice's main path)
 # ---------------------------------------------------------------------------
-def phase_main_path():
-    cfg = unconditional_64()
+def seeded_model(cfg, seed: int = 0) -> UNet:
     model = UNet.from_config(cfg.model, device="cuda").eval()
-    model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def reference_check(label, model, cfg, side: int, expected: dict) -> None:
+    """A forward on the card (bf16, kernels) against the same weights in f32 on the CPU."""
+    cpu = UNet.from_config(dataclasses.replace(cfg.model, dtype="float32"), device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(1, side, side, side, cfg.data.embedding_dim, generator=gen)
+    t = torch.full((1,), 0.5)  # exact in bf16, which the model casts time to
+    reset_counts()
+    with torch.inference_mode():
+        ref = cpu(x, t)
+        got = model(x.cuda().bfloat16(), t.cuda()).cpu()
+    launches = read_counts()
+    rel = rel_l2(got, ref)
+    say("sampling", f"{label} {side}³ b1 forward on the card (bf16, kernels launched {launches}) "
+        f"vs f32 on the CPU: relative L2 error {rel:.3e} (tolerance {FORWARD_REL_TOL:g})")
+    check(bool(torch.isfinite(got).all()), f"non-finite {label} {side}³ forward")
+    check(launches == expected, f"{label} {side}³ forward launches {launches}, expected {expected}")
+    check(rel < FORWARD_REL_TOL, f"{label} {side}³ forward relative error {rel:.3e}")
+
+
+def sample(label, model, cfg, n_frames: int, per_evaluation: dict) -> dict:
     table = torch.from_numpy(simplex_embedding(cfg.data.num_categories, cfg.data.embedding_dim))
     kwargs = dict(n_samples=2, batch_size=2, data_shape=(64, 64, 64),
                   embedding_dim=cfg.data.embedding_dim, seed=0, device="cuda",
                   state_dtype=torch.bfloat16, verbose=False, t0=cfg.inference.t0,
-                  tf=cfg.inference.tf, n_frames=3, substeps=1, method="rk4",
+                  tf=cfg.inference.tf, n_frames=n_frames, substeps=1, method="rk4",
                   keep_trajectory=True)
     torch.cuda.reset_peak_memory_stats()
-    la.reset_launch_counts()
+    reset_counts()
     result = sample_unconditional(model, table, **kwargs)
-    launches = dict(la.launch_counts)
+    launches = read_counts()
     nfe = result.nfe
-    say("main path", f"sample_unconditional 64³ b2 rk4 n_frames=3 substeps=1: nfe {nfe}, "
-        f"{result.seconds_per_batch[0]:.3f} s, {result.seconds_per_batch[0] / nfe * 1e3:.1f} "
-        f"ms per evaluation (first call, cuDNN set-up included), launches {launches}, "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(nfe == 8, f"expected 8 velocity evaluations, got {nfe}")
-    for name, count in launches.items():
-        check(count == 6 * nfe, f"{name} launched {count} times in the main path, expected {6 * nfe}")
-    check(result.decoded.shape == (2, 64, 64, 64), f"decoded shape {result.decoded.shape}")
+    seconds = result.seconds_per_batch[0]
+    say("sampling", f"{label}: sample_unconditional 64³ b2 rk4 n_frames={n_frames} substeps=1: "
+        f"nfe {nfe}, {seconds:.3f} s, {seconds / nfe * 1e3:.1f} ms per evaluation (first call, "
+        f"cuDNN set-up included), launches {launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(nfe == (n_frames - 1) * 4, f"{label}: {nfe} velocity evaluations")
+    for name in KERNELS:
+        want = per_evaluation.get(name, 0) * nfe
+        check(launches[name] == want,
+              f"{label}: {name} launched {launches[name]} times, expected {want}")
+    check(result.decoded.shape == (2, 64, 64, 64), f"{label}: decoded shape {result.decoded.shape}")
     final = result.trajectory[-1]
-    check(final.shape == (2, 64, 64, 64, 18), f"final state shape {final.shape}")
-    check(bool(np.isfinite(final).all()), "non-finite final state")
+    check(final.shape == (2, 64, 64, 64, 18), f"{label}: final state shape {final.shape}")
+    check(bool(np.isfinite(final).all()), f"{label}: non-finite final state")
     counts = [int((result.decoded == c).sum()) for c in range(cfg.data.num_categories)]
-    say("main path", f"decoded [2, 64, 64, 64], finite final state (|x| max "
+    say("sampling", f"{label}: decoded [2, 64, 64, 64], finite final state (|x| max "
         f"{float(np.abs(final).max()):.3f}); category counts {counts}")
+    return launches
 
-    # reference: the same weights in f32 on the CPU (plain attention, CPU conv)
-    cpu = UNet.from_config(dataclasses.replace(cfg.model, dtype="float32"), device="cpu").eval()
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    gen = torch.Generator().manual_seed(1)
-    x = torch.randn(1, 16, 16, 16, 18, generator=gen)
-    t = torch.full((1,), 0.5)  # exact in bf16, which the model casts time to
-    la.reset_launch_counts()
-    with torch.inference_mode():
-        ref = cpu(x, t)
-        got = model(x.cuda().bfloat16(), t.cuda()).cpu()
-    ref_launches = dict(la.launch_counts)
-    rel = ((got - ref).norm() / ref.norm()).item()
-    say("main path", f"16³ b1 forward on the card (bf16, kernels launched {ref_launches}) vs "
-        f"f32 on the CPU: relative L2 error {rel:.3e} (tolerance {FORWARD_REL_TOL:g})")
-    check(bool(torch.isfinite(got).all()), "non-finite 16³ forward")
-    check(all(c == 2 for c in ref_launches.values()), f"16³ forward launches {ref_launches}")
-    check(rel < FORWARD_REL_TOL, f"16³ forward relative error {rel:.3e}")
+
+def phase_sampling():
+    cfg = unconditional_64()
+    model = seeded_model(cfg)
+    launches = {"sampling flagship": sample(
+        "flagship", model, cfg, 3, {"folded_context": 6, "folded_project": 6})}
+    reference_check("flagship", model, cfg, 16, {"folded_context": 2, "folded_project": 2,
+                                                 "flash_attention": 0})
+
+    fa16 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, full_attn=FA16))
+    fa16_model = seeded_model(fa16)
+    launches["sampling fa16"] = sample("fa16", fa16_model, fa16, 2, {
+        "flash_attention": 2, "folded_context": 4, "folded_project": 4})
+    reference_check("fa16", fa16_model, fa16, 64, {"folded_context": 4, "folded_project": 4,
+                                                   "flash_attention": 2})
+    del fa16_model
+    torch.cuda.empty_cache()
     return model, launches
+
+
+def profile_table(phase: str, fn, label: str, wall_ms: float) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kernels)
+    if total <= 0:
+        say(phase, "profiler: no device time recorded (not measured)")
+        return
+    say(phase, f"profiler: {label}, {total / 1e3:.2f} ms of kernel time in "
+        f"{sum(e.count for e in kernels)} launches (unprofiled wall time {wall_ms:.1f} ms); "
+        f"top kernels by device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / total:5.1f}%"
+              f"  x{e.count:<5d} {e.key[:100]}", flush=True)
 
 
 def phase_forward(model):
@@ -306,25 +492,73 @@ def phase_forward(model):
     fwd_ms = statistics.median(times)
     say("forward", f"UNet b{BATCH} x 64³ bf16: {', '.join(f'{t:.1f}' for t in times)} ms, "
         f"median {fwd_ms:.1f} ms")
+    with torch.inference_mode():
+        profile_table("forward", lambda: model(x, t), f"one b{BATCH} forward", fwd_ms)
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model(x, t)
+# ---------------------------------------------------------------------------
+# Training (this slice's main path)
+# ---------------------------------------------------------------------------
+def train(label: str, full_attn, per_step: dict, profile: bool = False) -> dict:
+    cfg = unconditional_64()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, full_attn=full_attn),
+        data=dataclasses.replace(cfg.data, batch_size=TRAIN_MICRO_BATCH),
+        training=dataclasses.replace(cfg.training, accumulate_grad_batches=TRAIN_ACCUM),
+    )
+    model, tx, state = init_train_state(cfg)
+    step = make_train_step(model, tx, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    batches = [synthetic_geology_batch(gen, TRAIN_MICRO_BATCH, cfg.data.shape)
+               for _ in range(n_steps + 1)]
+    check(all(int(b.min()) == -1 and int(b.max()) <= cfg.data.num_categories - 2
+              for b in batches), f"{label}: synthetic batches outside [-1, n - 2]")
+    params = list(state.params.values())
+    snapshot = [torch.empty_like(p) for p in params]
+    times, changed, losses, norms = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i in range(n_steps):
+        torch._foreach_copy_(snapshot, [p.detach() for p in params])
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in kernels)
-    if total <= 0:
-        say("forward", "profiler: no device time recorded (not measured)")
-        return fwd_ms
-    say("forward", f"profiler: one b{BATCH} forward, {total / 1e3:.2f} ms of kernel time in "
-        f"{sum(e.count for e in kernels)} launches; top kernels by device time:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / total:5.1f}%"
-              f"  x{e.count:<5d} {e.key[:100]}", flush=True)
-    return fwd_ms
+        start = time.perf_counter()
+        state, metrics = step(state, batches[i], gen)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append((time.perf_counter() - start) * 1e3)
+        changed.append(any(not torch.equal(a, p) for a, p in zip(snapshot, params)))
+        losses.append(float(metrics["train_loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    median = statistics.median(times)
+    say("train", f"{label} 64³ micro-batch {TRAIN_MICRO_BATCH} x accumulation {TRAIN_ACCUM}: "
+        f"{n_steps} micro-steps ({TRAIN_WARMUP} warm-up): {', '.join(f'{t:.1f}' for t in times)} "
+        f"ms, median {median:.1f} ms per micro-step; peak {peak:.2f} GiB allocated")
+    say("train", f"{label}: train_loss {', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
+        f"{', '.join(f'{x:.4f}' for x in norms)}")
+    per = {k: v / n_steps for k, v in launches.items()}
+    say("train", f"{label}: launches {launches} in {n_steps} micro-steps, {per} per micro-step; "
+        f"params changed at micro-steps {[i for i, c in enumerate(changed) if c]} "
+        f"(accumulation boundaries every {TRAIN_ACCUM})")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"{label}: non-finite loss or gradient norm")
+    check(changed == [i % TRAIN_ACCUM == TRAIN_ACCUM - 1 for i in range(n_steps)],
+          f"{label}: params changed at {changed}")
+    check(state.step == n_steps and state.opt_state.updates == n_steps // TRAIN_ACCUM,
+          f"{label}: {state.step} micro-steps, {state.opt_state.updates} updates")
+    for name in KERNELS:
+        check(per[name] == per_step.get(name, 0),
+              f"{label}: {name} launched {per[name]} times per micro-step, "
+              f"expected {per_step.get(name, 0)}")
+    if profile:
+        profile_table("train", lambda: step(state, batches[-1], gen),
+                      f"one {label} micro-step", median)
+    del model, tx, state, step, batches, snapshot
+    torch.cuda.empty_cache()
+    return dict(ms=median, peak_gib=peak, launches=launches)
 
 
 def main() -> int:
@@ -340,26 +574,37 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    build = cuda_build.load(la.SOURCE)
-    summary = [line.strip() for line in build.log.splitlines()
-               if "registers" in line or "spill" in line or "Compiling entry" in line]
-    say("build", f"nvcc {build.seconds:.1f} s -> {build.path.name}")
-    for line in summary:
-        print(f"    {line}", flush=True)
+    builds = cuda_build.load_all([la.SOURCE, fa.SOURCE])
+    for name, build in builds.items():
+        say("build", f"nvcc {build.seconds:.1f} s -> {build.path.name}")
+        for line in build.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"    {line.strip()}", flush=True)
 
     worst = phase_kernel_check()
     rows = phase_kernel_times()
-    model, launches = phase_main_path()
+    phase_backwards()
+    model, launches = phase_sampling()
     phase_forward(model)
+    del model
+    torch.cuda.empty_cache()
+    launches["train flagship"] = train(
+        "flagship", None, {"folded_context": 6, "folded_project": 6})["launches"]
+    launches["train fa16"] = train(
+        "fa16", FA16, {"flash_attention": 2, "folded_context": 4, "folded_project": 4},
+        profile=True)["launches"]
 
     kernels = []
-    for name in ("folded_context", "folded_project"):
-        row = rows[(name, STAGE_TOKENS[0])]
+    for name in KERNELS:
+        row = rows[(name, BATCH, FLASH_TOKENS[0] if name == "flash_attention" else STAGE_TOKENS[0])]
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        check(sum(by_path.values()) > 0, f"{name} was never launched on the main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": worst[name],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": worst[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

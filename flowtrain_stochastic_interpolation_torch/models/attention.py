@@ -8,8 +8,12 @@ Port of ``flowtrain_stochastic_interpolation_tpu/models/attention.py``:
   runs the folded kernels K1 and K2 (:mod:`ops.linear_attention`) on the
   ``[B, N, h·d]`` projection in place, whose wrappers raise on anything but
   bf16; otherwise the einsum form with concatenated memory KV.
-* :class:`Attention` — full softmax attention with memory KV as einsum +
-  softmax (the flagship's innermost stage has 4³ = 64 tokens).
+* :class:`Attention` — full softmax attention with memory KV. With ``flash``
+  on, at least 1024 query tokens and a head width that is a multiple of 8, it
+  runs :func:`ops.flash_attention.flash_attention` (kernel K3 on the card, its
+  plain f32 version on the CPU), as the JAX package's ``_sdpa`` dispatches;
+  otherwise einsum + softmax (the flagship's innermost stage has 4³ = 64
+  tokens, so it stays einsum).
 """
 
 from __future__ import annotations
@@ -20,11 +24,13 @@ import torch
 from torch import nn
 
 from flowtrain_stochastic_interpolation_torch.models.layers import Dense, RMSNorm
+from flowtrain_stochastic_interpolation_torch.ops.flash_attention import flash_attention
 from flowtrain_stochastic_interpolation_torch.ops.linear_attention import (
     linear_attention_folded,
 )
 
 _FOLDED_LINEAR_MIN_TOKENS = 4096
+_FLASH_MIN_TOKENS = 1024
 
 
 def _memory_kv(mem_kv: torch.Tensor, b: int, dtype: torch.dtype):
@@ -56,10 +62,11 @@ class LinearAttention(_TokenAttention):
     """O(N) linear attention: q softmaxed over each head's features, k over tokens."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_mem_kv: int = 4,
-                 *, fused_folded: bool = True, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 *, fused_folded: bool = True, folded_vjp: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None, device=None):
         super().__init__(dim, heads, dim_head, num_mem_kv, dtype=dtype, device=device)
         self.fused_folded = fused_folded
+        self.folded_vjp = folded_vjp
         self.out_norm = RMSNorm(dim, device=device)
 
     def takes_folded(self, qkv: torch.Tensor) -> bool:
@@ -90,7 +97,8 @@ class LinearAttention(_TokenAttention):
         mem = self.mem_kv.to(qkv.dtype)
         # [h, n_mem, d] -> [n_mem, h·d], the folded layout
         fold = lambda t: t.transpose(0, 1).reshape(self.num_mem_kv, hidden).contiguous()
-        return linear_attention_folded(q, k, v, fold(mem[0]), fold(mem[1]), heads=self.heads)
+        return linear_attention_folded(q, k, v, fold(mem[0]), fold(mem[1]), heads=self.heads,
+                                       backward=self.folded_vjp)
 
     def attend_einsum(self, qkv: torch.Tensor) -> torch.Tensor:
         """The einsum form with concatenated memory KV: ``[B, N, h, d]``."""
@@ -107,7 +115,16 @@ class LinearAttention(_TokenAttention):
 
 
 class Attention(_TokenAttention):
-    """Full softmax attention with memory KV, as einsum + softmax."""
+    """Full softmax attention with memory KV: flash at ≥ 1024 tokens, else einsum."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_mem_kv: int = 4,
+                 *, flash: bool = True, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__(dim, heads, dim_head, num_mem_kv, dtype=dtype, device=device)
+        self.flash = flash
+
+    def takes_flash(self, n: int) -> bool:
+        """The flash dispatch rule of ``_sdpa``, for ``n`` query tokens."""
+        return self.flash and n >= _FLASH_MIN_TOKENS and self.dim_head % 8 == 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, spatial = x.shape[0], x.shape[1:-1]
@@ -117,7 +134,10 @@ class Attention(_TokenAttention):
         mk, mv = _memory_kv(self.mem_kv, b, q.dtype)
         k = torch.cat([mk, k], dim=1)
         v = torch.cat([mv, v], dim=1)
-        logits = torch.einsum("bihd,bjhd->bhij", q, k) * self.dim_head**-0.5
-        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-        out = torch.einsum("bhij,bjhd->bihd", probs, v)
+        if self.takes_flash(q.shape[1]):
+            out = flash_attention(q, k, v)
+        else:
+            logits = torch.einsum("bihd,bjhd->bhij", q, k) * self.dim_head**-0.5
+            probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+            out = torch.einsum("bhij,bjhd->bihd", probs, v)
         return self.to_out(out.reshape(b, *spatial, hidden))

@@ -167,38 +167,57 @@ class TimeMLP(nn.Module):
         return self.fc2(F.gelu(self.fc1(emb), approximate="none"))
 
 
-class Block(nn.Module):
-    """conv3 → RMSNorm → FiLM(scale+1, shift) → SiLU (dropout is off in eval)."""
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - p`` and scale kept values by
+    ``1 / (1 - p)``. The mask is drawn in f32 from ``generator`` (the default
+    generator of x's device when None)."""
+    keep = 1.0 - p
+    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, dim_in: int, dim_out: int, *, dtype=None, device=None):
+
+class Block(nn.Module):
+    """conv3 → RMSNorm → FiLM(scale+1, shift) → SiLU → dropout (in training only)."""
+
+    def __init__(self, dim_in: int, dim_out: int, *, dropout: float = 0.0, dtype=None,
+                 device=None):
         super().__init__()
+        self.dropout = dropout
         self.proj = Conv3d(dim_in, dim_out, 3, dtype=dtype, device=device)
         self.norm = RMSNorm(dim_out, device=device)
 
     def forward(self, x: torch.Tensor,
-                scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.norm(self.proj(x))
         if scale_shift is not None:
             scale, shift = scale_shift
             x = x * (scale + 1.0) + shift
-        return F.silu(x)
+        x = F.silu(x)
+        if self.training and self.dropout > 0.0:
+            x = dropout(x, self.dropout, generator)
+        return x
 
 
 class ResnetBlock(nn.Module):
-    """Two Blocks with a time-FiLM on the first, plus a 1×1 residual."""
+    """Two Blocks with a time-FiLM on the first, plus a 1×1 residual; dropout in
+    ``block1`` only, as the JAX package's ResnetBlock."""
 
-    def __init__(self, dim_in: int, dim_out: int, time_dim: int, *, dtype=None, device=None):
+    def __init__(self, dim_in: int, dim_out: int, time_dim: int, *, dropout: float = 0.0,
+                 dtype=None, device=None):
         super().__init__()
         self.mlp = Dense(time_dim, dim_out * 2, dtype=dtype, device=device)
-        self.block1 = Block(dim_in, dim_out, dtype=dtype, device=device)
+        self.block1 = Block(dim_in, dim_out, dropout=dropout, dtype=dtype, device=device)
         self.block2 = Block(dim_out, dim_out, dtype=dtype, device=device)
         self.res_conv = (Dense(dim_in, dim_out, dtype=dtype, device=device)
                          if dim_in != dim_out else None)
 
-    def forward(self, x: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h_t = self.mlp(F.silu(time_emb))
         h_t = h_t.reshape(h_t.shape[0], 1, 1, 1, h_t.shape[-1])
-        h = self.block2(self.block1(x, tuple(torch.chunk(h_t, 2, dim=-1))))
+        h = self.block1(x, tuple(torch.chunk(h_t, 2, dim=-1)), generator)
+        h = self.block2(h)
         if self.res_conv is not None:
             x = self.res_conv(x)
         return h + x

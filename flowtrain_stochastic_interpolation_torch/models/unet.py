@@ -1,11 +1,16 @@
 """The 3-D attention UNet that predicts the stochastic-interpolation velocity.
 
-Port of ``flowtrain_stochastic_interpolation_tpu/models/unet.py::UNet3D``
-(forward, eval mode): 7³ init conv, per-stage [res, res, attn, resample]
-downs, full-attention bottleneck, mirrored ups with two skip concats per
-stage, a final res block on the concat with the init residual, and a 1×1 out
-conv. Layout is channels-last ``[B, X, Y, Z, C]``; time is a ``[B]`` vector;
-the output is float32.
+Port of ``flowtrain_stochastic_interpolation_tpu/models/unet.py::UNet3D``:
+7³ init conv, per-stage [res, res, attn, resample] downs, full-attention
+bottleneck, mirrored ups with two skip concats per stage, a final res block on
+the concat with the init residual, and a 1×1 out conv. Layout is channels-last
+``[B, X, Y, Z, C]``; time is a ``[B]`` vector; the output is float32.
+
+A UNet is built in eval mode, the deterministic forward that the flax
+module's ``deterministic=True`` default gives (and that sampling needs).
+``model.train()`` (as ``train.steps.make_train_step`` does) turns on the
+dropout of every ResnetBlock's ``block1``; its masks come from the
+``generator`` passed to :meth:`UNet.forward`.
 
 Submodules carry the flax module names (``downs_0_block1``, ``mid_attn``,
 ``ups_2_upsample``, ...), so the JAX package's parameter tree maps onto this
@@ -56,11 +61,19 @@ class UNet(nn.Module):
         attn_dim_head: Union[int, Sequence[int]] = 64,
         attn_heads: Union[int, Sequence[int]] = 4,
         full_attn: Optional[Sequence[bool]] = None,
+        dropout: float = 0.0,
+        flash_attn: bool = True,
         fused_folded_attn: bool = True,
+        folded_attn_vjp: Optional[str] = None,
+        remat_blocks: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
     ):
         super().__init__()
+        if remat_blocks:
+            raise NotImplementedError(
+                "remat_blocks is not ported (ROADMAP Queue 1, the 128³ memory forms)"
+            )
         self.dim = dim
         self.dim_mults = tuple(dim_mults)
         self.dtype = dtype
@@ -75,16 +88,20 @@ class UNet(nn.Module):
 
         def attn(ch, is_full, h, dh):
             if is_full:
-                return Attention(ch, h, dh, **kw)
-            return LinearAttention(ch, h, dh, fused_folded=fused_folded_attn, **kw)
+                return Attention(ch, h, dh, flash=flash_attn, **kw)
+            return LinearAttention(ch, h, dh, fused_folded=fused_folded_attn,
+                                   folded_vjp=folded_attn_vjp, **kw)
+
+        def res(ch_in, ch_out):
+            return ResnetBlock(ch_in, ch_out, time_dim, dropout=dropout, **kw)
 
         self.init_conv = Conv3d(data_channels, dim, 7, **kw)
         self.time_mlp = TimeMLP(time_resolution, time_dim, bandwidth=time_bandwidth, **kw)
 
         skip_dims = []
         for i, (dim_in, dim_out) in enumerate(in_out):
-            setattr(self, f"downs_{i}_block1", ResnetBlock(dim_in, dim_in, time_dim, **kw))
-            setattr(self, f"downs_{i}_block2", ResnetBlock(dim_in, dim_in, time_dim, **kw))
+            setattr(self, f"downs_{i}_block1", res(dim_in, dim_in))
+            setattr(self, f"downs_{i}_block2", res(dim_in, dim_in))
             setattr(self, f"downs_{i}_attn", attn(dim_in, full[i], heads[i], dim_heads[i]))
             skip_dims += [dim_in, dim_in]
             last = i >= n_stages - 1
@@ -92,27 +109,26 @@ class UNet(nn.Module):
                     Conv3d(dim_in, dim_out, 3, **kw) if last else Downsample(dim_in, dim_out, **kw))
 
         mid_dim = dims[-1]
-        self.mid_block1 = ResnetBlock(mid_dim, mid_dim, time_dim, **kw)
-        self.mid_attn = Attention(mid_dim, heads[-1], dim_heads[-1], **kw)
-        self.mid_block2 = ResnetBlock(mid_dim, mid_dim, time_dim, **kw)
+        self.mid_block1 = res(mid_dim, mid_dim)
+        self.mid_attn = attn(mid_dim, True, heads[-1], dim_heads[-1])
+        self.mid_block2 = res(mid_dim, mid_dim)
 
         ch = mid_dim
         for i, ((dim_in, dim_out), fa, hh, dh) in enumerate(
             zip(in_out[::-1], full[::-1], heads[::-1], dim_heads[::-1])
         ):
-            setattr(self, f"ups_{i}_block1",
-                    ResnetBlock(ch + skip_dims.pop(), dim_out, time_dim, **kw))
-            setattr(self, f"ups_{i}_block2",
-                    ResnetBlock(dim_out + skip_dims.pop(), dim_out, time_dim, **kw))
+            setattr(self, f"ups_{i}_block1", res(ch + skip_dims.pop(), dim_out))
+            setattr(self, f"ups_{i}_block2", res(dim_out + skip_dims.pop(), dim_out))
             setattr(self, f"ups_{i}_attn", attn(dim_out, fa, hh, dh))
             last = i == n_stages - 1
             setattr(self, f"ups_{i}_upsample",
                     Conv3d(dim_out, dim_in, 3, **kw) if last else Upsample(dim_out, dim_in, **kw))
             ch = dim_in
 
-        self.final_res_block = ResnetBlock(ch + dim, dim, time_dim, **kw)
+        self.final_res_block = res(ch + dim, dim)
         self.final_conv = Dense(dim, data_channels, **kw)
         self.n_stages = n_stages
+        self.eval()
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, *, device=None) -> "UNet":
@@ -130,8 +146,10 @@ class UNet(nn.Module):
             dim=cfg.dim, dim_mults=cfg.dim_mults, data_channels=cfg.data_channels,
             time_resolution=cfg.time_resolution, time_bandwidth=cfg.time_bandwidth,
             attn_dim_head=cfg.attn_dim_head, attn_heads=cfg.attn_heads,
-            full_attn=cfg.full_attn, fused_folded_attn=cfg.fused_folded_attn,
-            dtype=getattr(torch, cfg.dtype), device=resolve_device(device),
+            full_attn=cfg.full_attn, dropout=cfg.dropout, flash_attn=cfg.flash_attn,
+            fused_folded_attn=cfg.fused_folded_attn, folded_attn_vjp=cfg.attn_folded_vjp,
+            remat_blocks=cfg.remat_blocks, dtype=getattr(torch, cfg.dtype),
+            device=resolve_device(device),
         )
 
     @property
@@ -144,7 +162,10 @@ class UNet(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Velocity ``[B, X, Y, Z, C]`` f32; ``generator`` draws the dropout masks
+        in training."""
         for d in x.shape[1:4]:
             if d % self.downsample_factor:
                 raise ValueError(
@@ -159,27 +180,27 @@ class UNet(nn.Module):
 
         skips = []
         for i in range(n):
-            x = getattr(self, f"downs_{i}_block1")(x, t)
+            x = getattr(self, f"downs_{i}_block1")(x, t, generator)
             skips.append(x)
-            x = getattr(self, f"downs_{i}_block2")(x, t)
+            x = getattr(self, f"downs_{i}_block2")(x, t, generator)
             x = getattr(self, f"downs_{i}_attn")(x) + x
             skips.append(x)
             x = getattr(self, f"downs_{i}_downsample")(x)
 
-        x = self.mid_block1(x, t)
+        x = self.mid_block1(x, t, generator)
         x = self.mid_attn(x) + x
-        x = self.mid_block2(x, t)
+        x = self.mid_block2(x, t, generator)
 
         for i in range(n):
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = getattr(self, f"ups_{i}_block1")(x, t)
+            x = getattr(self, f"ups_{i}_block1")(x, t, generator)
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = getattr(self, f"ups_{i}_block2")(x, t)
+            x = getattr(self, f"ups_{i}_block2")(x, t, generator)
             x = getattr(self, f"ups_{i}_attn")(x) + x
             x = getattr(self, f"ups_{i}_upsample")(x)
 
         x = torch.cat([x, r], dim=-1)
-        x = self.final_res_block(x, t)
+        x = self.final_res_block(x, t, generator)
         return self.final_conv(x).float()
 
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA sources: one ``nvcc`` call, bound with ``ctypes``.
 
-Each source under ``csrc/`` is compiled at first use into a shared library
+Each source under ``csrc/`` is compiled at first use, by one ``nvcc`` call
+of its own (:func:`load_all` starts several together), into a shared library
 with a plain C interface, for Hopper only (``sm_90a``), into ``_build/`` inside
 the package (listed in ``.gitignore``). The library's name carries a hash of
 the source and the flags, so an edited source is built anew. Nothing is
@@ -21,7 +22,7 @@ import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -70,26 +71,40 @@ def library_path(name: str) -> Path:
 
 def load(name: str) -> Build:
     """Build ``csrc/<name>.cu`` if its library is missing, load it, and keep it loaded."""
-    if name in _LOADED:
-        return _LOADED[name]
-    source = SOURCE_DIR / f"{name}.cu"
-    path = library_path(name)
-    seconds, log = 0.0, ""
-    if not path.exists():
+    return load_all([name])[name]
+
+
+def load_all(names: Iterable[str]) -> Dict[str, Build]:
+    """Load several sources, building the missing ones with one ``nvcc`` each, all
+    started together and then waited for."""
+    names = list(dict.fromkeys(names))
+    pending = {}
+    for name in names:
+        path = library_path(name)
+        if name in _LOADED or path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build under a temporary name and rename: concurrent builders never
         # load a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = build_command(source, Path(tmp), nvcc_path())
-        start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
+        cmd = build_command(SOURCE_DIR / f"{name}.cu", Path(tmp), nvcc_path())
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, cmd, tmp, path, time.perf_counter())
+    built, failures = {}, []
+    for name, (proc, cmd, tmp, path, start) in pending.items():  # wait for every build
+        log, _ = proc.communicate()
+        built[name] = (time.perf_counter() - start, log)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)
-    build = Build(ctypes.CDLL(str(path)), path, seconds, log)
-    _LOADED[name] = build
-    return build
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, path)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    for name in names:
+        if name not in _LOADED:
+            path = library_path(name)
+            seconds, log = built.get(name, (0.0, ""))
+            _LOADED[name] = Build(ctypes.CDLL(str(path)), path, seconds, log)
+    return {name: _LOADED[name] for name in names}

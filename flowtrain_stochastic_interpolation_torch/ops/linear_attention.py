@@ -11,6 +11,10 @@ tensors with ``h·d = 128``:
 * K2, the projection (``folded_project``): ``out = groupsoftmax(q) · d^-½ @
   ctx`` with a per-head max, p and ctx rounded to bf16, f32 accumulation,
   output in q's dtype.
+* The backward: the JAX package's closed forms (``_folded_vjp_bwd_closed_form``
+  and ``_folded_vjp_bwd_closed_form_bf16``), plain XLA there and torch
+  operations here; :func:`linear_attention_folded` is a
+  ``torch.autograd.Function`` over K1 + K2 and them.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then. For CUDA tensors it launches the hand-written kernel in
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -214,15 +218,156 @@ def folded_project(q: torch.Tensor, ctx: torch.Tensor, heads: int) -> torch.Tens
     return out
 
 
+# ---------------------------------------------------------------------------
+# Backward: the closed forms, as torch operations
+# ---------------------------------------------------------------------------
+# Above this many rows per item the JAX package hands the backward to its
+# row-chunked form (``_CHUNKED_BWD_MIN_ROWS``), which is not ported yet
+# (ROADMAP Queue 1, the 128³ memory forms).
+CHUNKED_BWD_MIN_ROWS = 1 << 20
+BACKWARDS = ("closed_form_bf16", "closed_form")
+_UNPORTED_BACKWARDS = ("chunked", "autodiff")
+
+
+def _group_ones(hd: int, heads: int, device) -> torch.Tensor:
+    """``[h·d, h·d]`` block-diagonal ones: 1 where row and column share a head."""
+    group = torch.arange(hd, device=device) // (hd // heads)
+    return (group[:, None] == group[None, :]).float()
+
+
+def folded_backward_closed_form(q, k, v, mem_k, mem_v, dout, heads: int):
+    """``(dq, dk, dv, dmk, dmv)``: ``_folded_vjp_bwd_closed_form``, every stream in f32."""
+    b, n, hd = q.shape
+    d = hd // heads
+    scale = d**-0.5
+    qf, kf, vf, do = (t.float() for t in (q, k, v, dout))
+    mkf, mvf = mem_k.float(), mem_v.float()
+    g = _group_ones(hd, heads, q.device)
+
+    # recompute the forward's pieces: q group softmax with a per-head shift,
+    # k column softmax over [mem; tokens] without the concatenation
+    m_q = qf.view(b, n, heads, d).amax(dim=-1, keepdim=True)
+    e_q = torch.exp(qf - m_q.expand(b, n, heads, d).reshape(b, n, hd))
+    s_q = e_q / torch.matmul(e_q, g)
+    big_m = torch.maximum(kf.amax(dim=1), mkf.amax(dim=0)[None])      # [b, hd]
+    ek = torch.exp(kf - big_m[:, None])
+    em = torch.exp(mkf[None] - big_m[:, None])                         # [b, n_mem, hd]
+    z = ek.sum(dim=1) + em.sum(dim=1)
+    p_k = ek / z[:, None]
+    p_m = em / z[:, None]
+    ctx = (torch.matmul(p_k.transpose(1, 2), vf)
+           + torch.matmul(p_m.transpose(1, 2), mvf)) * g
+
+    d_s = scale * torch.matmul(do, ctx.transpose(1, 2))
+    dq = s_q * (d_s - torch.matmul(d_s * s_q, g))
+    d_ctx = scale * torch.matmul(s_q.transpose(1, 2), do) * g
+    dv = torch.matmul(p_k, d_ctx)
+    dmv = torch.matmul(p_m, d_ctx).sum(dim=0)
+    d_pk = torch.matmul(vf, d_ctx.transpose(1, 2))
+    d_pm = torch.matmul(mvf, d_ctx.transpose(1, 2))                   # [b, n_mem, hd]
+    inner = (d_pk * p_k).sum(dim=1) + (d_pm * p_m).sum(dim=1)         # [b, hd]
+    dk = p_k * (d_pk - inner[:, None])
+    dmk = (p_m * (d_pm - inner[:, None])).sum(dim=0)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dmk.to(mem_k.dtype), dmv.to(mem_v.dtype))
+
+
+def folded_backward_closed_form_bf16(q, k, v, mem_k, mem_v, dout, heads: int):
+    """``(dq, dk, dv, dmk, dmv)``: ``_folded_vjp_bwd_closed_form_bf16``.
+
+    The ``[N, h·d]`` streams stay in the input dtype (bf16 on the card); the
+    softmax stabilisers, normalisers, the column inner product and every
+    ``[b, h·d]`` / ``[b, h·d, h·d]`` reduction are f32 (a reduction of bf16
+    streams upcasts them, so its products are exact and it sums in f32); the
+    cancelling subtraction of dk runs in f32. With f32 inputs it is the f32
+    closed form up to the order of the sums.
+    """
+    b, n, hd = q.shape
+    d = hd // heads
+    scale = d**-0.5
+    cdt = q.dtype
+    f32 = torch.float32
+    g = _group_ones(hd, heads, q.device)
+
+    q4 = q.reshape(b, n, heads, d)
+    e4 = torch.exp((q4 - q4.amax(dim=-1, keepdim=True)).float())
+    s_q = (e4 / e4.sum(dim=-1, keepdim=True)).to(cdt).reshape(b, n, hd)
+
+    mkf = mem_k.float()
+    big_m = torch.maximum(k.amax(dim=1).float(), mkf.amax(dim=0)[None])
+    ekb = torch.exp(k.float() - big_m[:, None]).to(cdt)              # [b, n, hd]
+    em = torch.exp(mkf[None] - big_m[:, None])                         # [b, n_mem, hd] f32
+    z = ekb.sum(dim=1, dtype=f32) + em.sum(dim=1)
+    p_m = em / z[:, None]
+
+    # the context and its cotangent, with 1/Z folded into the small tensors
+    ctx = (torch.matmul(ekb.transpose(1, 2).float(), v.float()) / z[:, :, None]
+           + torch.matmul(p_m.transpose(1, 2), mem_v.float())) * g
+    d_ctx = scale * torch.matmul(s_q.transpose(1, 2).float(), dout.float()) * g
+    d_ctx_over_z = d_ctx / z[:, :, None]
+
+    d_s = scale * torch.matmul(dout.to(cdt), ctx.transpose(1, 2).to(cdt))
+    ss4 = (d_s * s_q).view(b, n, heads, d)
+    corr = ss4.float().sum(dim=-1, keepdim=True).to(cdt)
+    dq = s_q * (d_s - corr.expand(b, n, heads, d).reshape(b, n, hd))
+
+    dv = torch.matmul(ekb, d_ctx_over_z.to(cdt))
+    dmv = torch.matmul(p_m, d_ctx).sum(dim=0)
+    d_pk = torch.matmul(v.to(cdt), d_ctx_over_z.transpose(1, 2).to(cdt))
+    d_pm = torch.matmul(mem_v.float(), d_ctx.transpose(1, 2))         # [b, n_mem, hd]
+    inner = (ekb * d_pk).float().sum(dim=1) + (d_pm * p_m).sum(dim=1)
+    dk = ekb.float() * (d_pk.float() - (inner / z)[:, None])
+    dmk = (p_m * (d_pm - inner[:, None])).sum(dim=0)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dmk.to(mem_k.dtype), dmv.to(mem_v.dtype))
+
+
+_BACKWARD_FNS = {
+    "closed_form_bf16": folded_backward_closed_form_bf16,
+    "closed_form": folded_backward_closed_form,
+}
+
+
+class _LinearAttentionFolded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mem_k, mem_v, heads, backward):
+        ctx.heads, ctx.backward = heads, backward
+        ctx.save_for_backward(q, k, v, mem_k, mem_v)
+        return folded_project(q, folded_context(k, v, mem_k, mem_v, heads), heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mem_k, mem_v = ctx.saved_tensors
+        grads = _BACKWARD_FNS[ctx.backward](q, k, v, mem_k, mem_v, dout, ctx.heads)
+        return (*grads, None, None)
+
+
 def linear_attention_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             mem_k: torch.Tensor, mem_v: torch.Tensor, *,
-                            heads: int) -> torch.Tensor:
-    """Linear attention on head-folded ``[B, N, h·d]`` tensors (forward only).
+                            heads: int, backward: Optional[str] = None) -> torch.Tensor:
+    """Linear attention on head-folded ``[B, N, h·d]`` tensors, differentiable.
 
     ``mem_k``/``mem_v`` are the ``[n_mem, h·d]`` memory-KV tokens, folded the
     same way and shared across the batch. ``h·d`` must be a multiple of 128.
+    The forward is K1 + K2. ``backward`` picks the closed form of the
+    gradient: ``"closed_form_bf16"`` (the default, ``None``) or
+    ``"closed_form"``. The JAX package's ``"chunked"`` and ``"autodiff"``
+    forms, and any backward at 2^20 or more rows per item, are not ported:
+    asking for a gradient through them raises ``NotImplementedError``.
     """
     hd = q.shape[-1]
     if hd % 128 != 0:
         raise ValueError(f"folded head dim {hd} must be a multiple of 128")
-    return folded_project(q, folded_context(k, v, mem_k, mem_v, heads), heads)
+    if backward is None:
+        backward = "closed_form_bf16"
+    if backward not in BACKWARDS + _UNPORTED_BACKWARDS:
+        raise ValueError(f"unknown backward {backward!r}")
+    tensors = (q, k, v, mem_k, mem_v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if backward in _UNPORTED_BACKWARDS or q.shape[1] >= CHUNKED_BWD_MIN_ROWS:
+            raise NotImplementedError(
+                f"the {backward!r} folded backward at {q.shape[1]} rows per item is not "
+                "ported: the port has the one-shot closed forms below 2^20 rows "
+                "(ROADMAP Queue 1, the 128³ memory forms: the chunked folded backward)"
+            )
+    return _LinearAttentionFolded.apply(q, k, v, mem_k, mem_v, heads, backward)

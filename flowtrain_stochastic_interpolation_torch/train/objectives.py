@@ -1,0 +1,68 @@
+"""The unconditional training objective.
+
+Port of ``unconditional_loss`` in
+``flowtrain_stochastic_interpolation_tpu/train/objectives.py``: embed the
+categorical batch, add ``x1_noise`` Gaussian noise, draw X0 ~ N(0, 1) and
+T ~ U(time_range), interpolate with the one-sided linear interpolant, and
+match the velocity with the relative MSE ``mse(VT, V̂) / mse(VT, 0)``,
+reduced in f32. ``conditional_loss`` is not ported yet.
+
+The random draws come from a ``torch.Generator`` and are not the JAX
+package's; a caller may pass its own ``draws`` (a test hands both sides the
+same tensors).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from flowtrain_stochastic_interpolation_torch.interpolants import Interpolant
+from flowtrain_stochastic_interpolation_torch.ops.embedding import embed
+
+
+def _rel_mse(target: torch.Tensor, pred: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """``mean((pred - target)²) / (mean(target²) + eps)``, reduced in f32."""
+    diff = pred.float() - target.float()
+    return diff.square().mean() / (target.float().square().mean() + eps)
+
+
+def _draw_common(generator: torch.Generator, batch: torch.Tensor, table: torch.Tensor,
+                 time_range: Tuple[float, float], x1_noise: float):
+    """Draw ``(X1_clean, X1, X0, T)``: the volumes in the table's dtype, T in f32."""
+    x1_clean = embed(batch, table)  # [B, X, Y, Z, E]
+    kw = dict(generator=generator, device=x1_clean.device, dtype=x1_clean.dtype)
+    x1 = x1_clean + x1_noise * torch.randn(x1_clean.shape, **kw)
+    x0 = torch.randn(x1.shape, **kw)
+    lo, hi = time_range
+    t = lo + (hi - lo) * torch.rand(x1.shape[0], generator=generator, device=x1.device,
+                                    dtype=torch.float32)
+    return x1_clean, x1, x0, t
+
+
+def unconditional_loss(
+    model: nn.Module,
+    batch: torch.Tensor,
+    table: torch.Tensor,
+    generator: torch.Generator,
+    *,
+    interpolant: Interpolant,
+    time_range: Tuple[float, float],
+    x1_noise: float = 1e-3,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Relative-MSE flow objective of the categorical ``batch`` ``[B, X, Y, Z]``.
+
+    ``draws = (X1, X0, T)`` replaces the random draws. ``generator`` also draws
+    the model's dropout masks when the model is in training.
+    """
+    if draws is None:
+        _, x1, x0, t = _draw_common(generator, batch, table, time_range, x1_noise)
+    else:
+        x1, x0, t = draws
+    xt, vt = interpolant.flow_objective(t, x0, x1)
+    v_hat = model(xt, t, generator)
+    loss = _rel_mse(vt, v_hat)
+    return loss, {"train_loss": loss}

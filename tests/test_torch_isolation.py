@@ -37,7 +37,8 @@ def _run(args, **kw):
 def test_port_and_chip_smoke_import_without_jax():
     proc = _run([sys.executable, "-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 12, proc.stdout  # every module of the port
+    # every module of the port, the training slice's (interpolants, data, train) too
+    assert int(proc.stdout.split()[0]) >= 23, proc.stdout
 
 
 def test_chip_smoke_without_a_card_exits_nonzero_and_says_why():
@@ -58,3 +59,60 @@ def test_build_targets_sm90a_into_an_ignored_directory():
                 if line.strip() and not line.startswith("#")]
     assert any(fnmatch.fnmatch(rel + "/", p) or fnmatch.fnmatch(rel, p.rstrip("/"))
                for p in patterns), (rel, patterns)
+
+
+def test_every_kernel_source_builds_by_its_own_nvcc_call():
+    sources = sorted(p.stem for p in cuda_build.SOURCE_DIR.glob("*.cu"))
+    assert sources == ["flash_attention", "linear_attention"]
+    outputs = {cuda_build.library_path(name) for name in sources}
+    assert len(outputs) == 2 and all(o.parent == cuda_build.BUILD_DIR for o in outputs)
+    cmd = cuda_build.build_command(cuda_build.SOURCE_DIR / "flash_attention.cu",
+                                   cuda_build.library_path("flash_attention"))
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+
+
+def _fake_toolkit(tmp_path, fail: str = ""):
+    """A CUDA_HOME whose nvcc builds an empty shared library with the C compiler
+    (failing for sources named ``fail``) and logs each call with its start time."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$(date +%s.%N) $*" >> {tmp_path}/calls\n'
+        'eval out=\\${$(($# - 1))} src=\\${$#}\n'  # build_command ends "-o OUT SOURCE"
+        f'case "$src" in *{fail or "@never@"}*) echo "error: no" ; exit 2;; esac\n'
+        "sleep 1\n"
+        'exec cc -shared -fPIC -x c /dev/null -o "$out"\n'
+    )
+    nvcc.chmod(0o755)
+    return tmp_path / "cuda"
+
+
+def test_load_all_starts_every_nvcc_together_and_loads_each(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(_fake_toolkit(tmp_path)))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    builds = cuda_build.load_all(["linear_attention", "flash_attention"])
+    calls = (tmp_path / "calls").read_text().splitlines()
+    assert len(calls) == 2
+    starts = [float(line.split()[0]) for line in calls]
+    assert abs(starts[0] - starts[1]) < 0.9  # the second began before the first's 1 s ended
+    for name, build in builds.items():
+        assert build.path == cuda_build.library_path(name) and build.path.exists()
+        assert build.seconds >= 1.0
+    assert cuda_build.load("flash_attention") is builds["flash_attention"]  # no rebuild
+    assert len((tmp_path / "calls").read_text().splitlines()) == 2
+
+
+def test_load_all_waits_for_every_build_and_raises_on_a_failed_one(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(_fake_toolkit(tmp_path, fail="linear_attention")))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    try:
+        cuda_build.load_all(["linear_attention", "flash_attention"])
+    except RuntimeError as exc:
+        assert "nvcc failed (2)" in str(exc) and "linear_attention.cu" in str(exc)
+    else:
+        raise AssertionError("a failed nvcc must raise")
+    left = sorted(p.name for p in (tmp_path / "build").iterdir())
+    assert left == [cuda_build.library_path("flash_attention").name]  # no temporary files

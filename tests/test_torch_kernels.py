@@ -1,4 +1,5 @@
-"""The folded linear-attention kernels K1 and K2 and their plain versions.
+"""The kernels K1 and K2 (folded linear attention) and K3 (flash attention),
+their plain versions, and the backwards that train through them.
 
 Imports nothing of JAX, so it runs where JAX is not installed, with
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``. Tests
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from flowtrain_stochastic_interpolation_torch.models.attention import LinearAttention
+from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
 
 HEADS, WIDTH = 4, 128
@@ -158,3 +160,100 @@ def test_linear_attention_bf16_on_cuda_launches_the_kernels(cuda):
         out = attn(x)
     assert la.launch_counts == {"folded_context": 1, "folded_project": 1}
     assert out.shape == x.shape and torch.isfinite(out).all()
+
+
+# ---------------------------------------------------------------------------
+# K3 and the backwards (on the card)
+# ---------------------------------------------------------------------------
+def _attention_operands(batch, n, m, device, seed=0, heads=4, d=32, q_scale=1.0):
+    """q as a column slice of a [B, N, 3, h, d] bf16 projection (as the UNet hands
+    it over); k and v contiguous [B, M, h, d] bf16 (the memory concatenation)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(batch, n, 3, heads, d, generator=gen, device=device)
+    qkv[:, :, 0] *= q_scale
+    k = torch.randn(batch, m, heads, d, generator=gen, device=device)
+    v = torch.randn(batch, m, heads, d, generator=gen, device=device)
+    return qkv.to(torch.bfloat16)[:, :, 0], k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def assert_flash_close(out, lse, want_out, want_lse):
+    """The rule chip_smoke.py holds K3 to: out within 1e-3·RMS + one bf16 ulp
+    (2^-7·|plain|) elementwise and 4e-3 in relative L2; lse within
+    1e-4 + 1e-5·|plain|. Both sides compute in f32 and differ in the order of
+    the sums, then round out to bf16."""
+    got, want = out.float(), want_out.float()
+    rms = want.square().mean().sqrt().item()
+    torch.testing.assert_close(got, want, rtol=2.0**-7, atol=1e-3 * rms)
+    assert ((got - want).norm() / want.norm()).item() <= 4e-3
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n,m,d,q_scale", [
+    (4, 4096, 4100, 32, 1.0),       # the fa16 stage, training batch
+    (1, 1024 + 37, 1024 + 41, 32, 1.0),   # ragged queries and keys
+    (2, 4096, 4100, 32, 8.0),       # peaked softmax
+    (1, 300, 260, 64, 1.0),         # the UNet's default head width
+])
+def test_flash_kernel_matches_plain_version(cuda, batch, n, m, d, q_scale):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _attention_operands(batch, n, m, cuda, seed=n + d, d=d, q_scale=q_scale)
+    fa.reset_launch_counts()
+    out, lse = fa.flash_attention_forward(q, k, v)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launch_counts == {"flash_attention": 1}
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert lse.shape == (batch, 4, n) and lse.dtype == torch.float32
+    assert_flash_close(out, lse, want_out, want_lse)
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_raises_instead_of_falling_back(cuda):
+    q, k, v = _attention_operands(1, 64, 68, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_forward(q.float(), k, v)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_forward(q[..., :24], k[..., :24], v[..., :24])
+    every_other = torch.zeros(1, 64, 4, 64, device=cuda, dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_forward(every_other, k, v)
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.gpu
+def test_flash_backward_bf16_matches_autograd_of_the_f32_plain_version(cuda):
+    """16³ b1: 4096 queries, 4100 keys (4 memory tokens), 4 heads × 32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _attention_operands(1, 4096, 4100, cuda, seed=3)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(4),
+                       device=cuda).to(torch.bfloat16)
+    ours = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*ours).backward(dout)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention_plain(*ref)[0].backward(dout.float())
+    for a, b in zip(ours, ref):
+        assert a.grad.dtype == torch.bfloat16
+        assert _rel_l2(a.grad, b.grad) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_folded_backward_bf16_matches_autograd_of_the_f32_reference(cuda):
+    """16³ b1: K1 + K2 forward, closed_form_bf16 backward, against autograd of
+    the f32 einsum composition on the same bf16 inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mk, mv = _qkv(1, 4096, cuda, seed=6)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(7),
+                       device=cuda).to(torch.bfloat16)
+    ours = [t.detach().clone().requires_grad_() for t in (q, k, v, mk, mv)]
+    la.reset_launch_counts()
+    la.linear_attention_folded(*ours, heads=HEADS).backward(dout)
+    assert la.launch_counts == {"folded_context": 1, "folded_project": 1}
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v, mk, mv)]
+    _einsum_reference(*ref).backward(dout.float())
+    for a, b in zip(ours, ref):
+        assert a.grad.dtype == torch.bfloat16
+        assert _rel_l2(a.grad, b.grad) <= 2e-2

@@ -11,6 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+from test_torch_unet import random_params
 
 from flowtrain_stochastic_interpolation_torch import config as port_config
 from flowtrain_stochastic_interpolation_torch.models.persistence import params_from_jax
@@ -23,6 +26,7 @@ def _tree(mc, side):
         dim=mc.dim, dim_mults=tuple(mc.dim_mults), data_channels=mc.data_channels,
         dropout=0.0, time_resolution=mc.time_resolution, time_bandwidth=mc.time_bandwidth,
         time_learned_emb=True, attn_dim_head=mc.attn_dim_head, attn_heads=mc.attn_heads,
+        full_attn=mc.full_attn,
     )
     x = jnp.zeros((1, side, side, side, mc.data_channels))
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x, jnp.zeros((1,)))
@@ -40,9 +44,18 @@ def _leaves(tree, prefix=()):
             yield prefix + (key,), value
 
 
+FA16 = (False, False, True, False, True)  # full attention at 16³ and at 4³
+
+
+def _fa16(**overrides):
+    cfg = port_config.unconditional_64(**overrides)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, full_attn=FA16))
+
+
 PRESETS = {
     "tiny": (port_config.tiny_test, 8),
     "flagship_width": (port_config.unconditional_64, 16),
+    "fa16_flagship_width": (_fa16, 16),
 }
 
 
@@ -93,3 +106,38 @@ def test_missing_extra_or_misshapen_keys_raise():
     unknown = dict(tree, final_conv=dict(tree["final_conv"], scale=np.ones(3, np.float32)))
     with pytest.raises(KeyError, match="scale"):
         params_from_jax(unknown)
+
+
+def test_fa16_tree_has_full_attention_at_stage_2():
+    mc = dataclasses.replace(_fa16().model, dtype="float32")
+    state = params_from_jax(_tree(mc, 16), UNet.from_config(mc, device="cpu"))
+    for name in ("downs_2_attn", "ups_2_attn", "downs_4_attn", "ups_0_attn", "mid_attn"):
+        assert f"{name}.to_qkv.weight" in state and f"{name}.out_norm.g" not in state, name
+    for name in ("downs_0_attn", "downs_1_attn", "downs_3_attn", "ups_4_attn"):
+        assert f"{name}.out_norm.g" in state, name  # linear attention keeps its output norm
+
+
+def test_tiny_full_attention_forward_matches_jax():
+    """Full attention at 12³ (1,728 tokens, head width 8): both sides take the
+    flash path, the JAX kernel in interpret mode. f32, within 1e-4 as the tiny
+    forward of test_torch_unet."""
+    mc = dataclasses.replace(port_config.tiny_test().model, full_attn=(True, True),
+                             attn_dim_head=8)
+    model = UNet3D(
+        dim=mc.dim, dim_mults=tuple(mc.dim_mults), data_channels=mc.data_channels,
+        dropout=0.0, time_resolution=mc.time_resolution, time_bandwidth=mc.time_bandwidth,
+        time_learned_emb=True, attn_dim_head=mc.attn_dim_head, attn_heads=mc.attn_heads,
+        full_attn=mc.full_attn,
+    )
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 12, 12, 12, mc.data_channels)).astype(np.float32)
+    t = rng.uniform(0.0, 1.0, 2).astype(np.float32)
+    variables = random_params(model, jnp.asarray(x), jnp.asarray(t), 11, mc.time_bandwidth)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax.jit(model.apply)(variables, jnp.asarray(x), jnp.asarray(t)))
+    port = UNet.from_config(mc, device="cpu").eval()
+    port.load_state_dict(params_from_jax(variables, port))
+    assert port.downs_0_attn.takes_flash(12**3) and not port.mid_attn.takes_flash(6**3)
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
