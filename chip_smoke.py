@@ -9,21 +9,27 @@ Phases, each printed on one flushed line with the seconds since start:
    no CUDA device -> exit 1 with a message that says so;
 1. build: one nvcc call per source (``csrc/linear_attention.cu`` and
    ``csrc/flash_attention.cu``), started together; their wall seconds and the
-   ``-Xptxas -v`` register / shared-memory / spill summary;
-2. kernel check: K1 (folded context) and K2 (folded projection) against their
-   plain PyTorch versions on the card, at batch 8 x {262144, 32768, 4096}
-   tokens x 128 (the 64³, 32³ and 16³ stages), a ragged 4096 + 37, a
-   cross-head logit spread and a 64³ case whose memory tokens carry most
-   of the softmax weight; K3 (flash attention) against its plain version,
-   out and lse, at b8 and b4 x 4096 queries x 4100 keys x 4 heads x 32 (the
-   fa16 stage), a ragged 1024 + 37 queries x 1024 + 41 keys, and a peaked
-   softmax (q x 8); each case is held to a tolerance scaled to its own values;
+   ``-Xptxas -v`` register / shared-memory / spill summary of every template;
+2. kernel check, each kernel against its plain PyTorch version on the card,
+   each case held to a tolerance scaled to its own values:
+   - K1 (folded context) and K2 (folded projection) at batch 8 x {262144,
+     32768, 4096} tokens x 128 (the 64³, 32³ and 16³ stages), a ragged
+     4096 + 37, a cross-head logit spread and a 64³ case whose memory tokens
+     carry most of the softmax weight; their general path at b2 x 32768 with
+     8 x 32, 4 x 64 and 2 x 64 heads in bf16 and 4 x 32 in f32;
+   - K3 (flash attention), out and lse, at b8 and b4 x 4096 queries x 4100
+     keys x 4 heads x 32 (the fa16 stage), a ragged 1024 + 37 queries x
+     1024 + 41 keys, a peaked softmax (q x 8), and at b2 x 4096 x 4100 with
+     d in {8, 16, 48, 128} in bf16 and d = 32 in f32;
+   - K4a (v1 context) and K4b (v1 projection) at b8 x {262144, 32768} queries
+     with 4 more keys, a ragged b2 x 32768 + 37, a peaked k (x 8), a 64³ case
+     whose 4 memory tokens carry most of the weight, and b8 x 32768 in f32;
 3. kernel times: each kernel, its plain version and (K3) one PyTorch call of
-   the same function (``scaled_dot_product_attention``) at the main path's
+   the same function (``scaled_dot_product_attention``) at the main paths'
    shapes (CUDA events around 20 back-to-back launches after a warm-up,
    median of 5 such rounds) beside the card's bound;
-4. backwards: the flash backward and the folded backward in bf16 against
-   autograd of the f32 plain versions at 16³ b1;
+4. backwards: the flash, folded and v1 backwards in bf16 against autograd of
+   the f32 plain versions at 16³ b1 (flash, folded) and 32³ b1 (v1);
 5. sampling, the first slice's main path: the ``unconditional_64`` UNet at
    full width, seeded random weights, bf16 compute, through
    ``sample_unconditional`` at 64³ x batch 2, RK4 with 3 frames and 1 substep
@@ -31,27 +37,38 @@ Phases, each printed on one flushed line with the seconds since start:
    same for the fa16 configuration (full attention at 16³ and 4³) with 2 frames
    (4 evaluations): K3 2, K1 4 and K2 4 times per evaluation. Reference checks:
    a 16³ forward of the flagship and a 64³ forward of fa16 on the card (bf16,
-   kernels) against the same weights in f32 on the CPU (plain path);
+   kernels) against the same weights in f32 on the CPU (plain path), and the
+   fa16 64³ forward at ``dtype="float32"`` on the card, whose K1, K2 and K3
+   must take f32 operands, against the same CPU forward;
 6. forward at the benchmark's batch: b8 x 64³ UNet forwards, 1 warm-up and 3
    timed, each closed by ``torch.cuda.synchronize()``; then a
    ``torch.profiler`` breakdown of one forward by device time;
-7. training, this slice's main path, for the flagship and then for fa16:
-   ``init_train_state`` and ``make_train_step`` at 64³, micro-batch 4 x
+7. the v1 path, the third slice's main path: ``LinearAttention(fused=True,
+   fused_folded=False)`` at the widths of the flagship's first linear
+   attention (dim 48, 4 heads x 32), bf16, seeded weights: 64³ b8 forward,
+   64³ b4 forward and backward, 32³ b8 forward, each 1 warm-up and 5 timed
+   calls closed by ``torch.cuda.synchronize()``, with the median ms, peak
+   memory and launches (K4a 1 and K4b 1 per call), and held against the same
+   weights through the folded kernels (K1 + K2), timed the same way;
+8. training, the second slice's main path, for the flagship and then for
+   fa16: ``init_train_state`` and ``make_train_step`` at 64³, micro-batch 4 x
    accumulation 2, on synthetic batches generated on the card; 2 warm-up and 8
    timed micro-steps, each closed by ``torch.cuda.synchronize()``. Each prints
    the median ms per micro-step, peak memory, the loss and gradient norm (which
    must be finite), the launches per micro-step, and that the params changed on
    the accumulation boundaries only; fa16 adds a ``torch.profiler`` breakdown
-   of one micro-step.
+   of one micro-step. After the flagship's steps, which leave the model in
+   training mode, two samplers from the same x0 must agree exactly.
 
-The launch counts are set to 0 just before each main-path run (phases 5 and
-7) and read just after it. Then one JSON line per kernel (``{"kernels":
+The launch counts are set to 0 just before each main-path run (phases 5, 7
+and 8) and read just after it. Then one JSON line per kernel (``{"kernels":
 [...]}``), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -65,7 +82,12 @@ import torch.nn.functional as F
 
 from flowtrain_stochastic_interpolation_torch.config import unconditional_64
 from flowtrain_stochastic_interpolation_torch.data.synthetic import synthetic_geology_batch
-from flowtrain_stochastic_interpolation_torch.inference import sample_unconditional
+from flowtrain_stochastic_interpolation_torch.inference import (
+    initial_noise,
+    make_sampler,
+    sample_unconditional,
+)
+from flowtrain_stochastic_interpolation_torch.models.attention import LinearAttention
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build
 from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
@@ -74,9 +96,11 @@ from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embed
 from flowtrain_stochastic_interpolation_torch.train.loop import init_train_state
 from flowtrain_stochastic_interpolation_torch.train.steps import make_train_step
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and bf16 tensor-core rate
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, bf16 tensor-core rate
+# and the f32 rate of the FP32 cores (K4a and K4b compute in f32 there)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 BATCH = 8
 STAGE_TOKENS = (262144, 32768, 4096)  # 64³, 32³, 16³
@@ -85,6 +109,17 @@ HEAD_DIM = WIDTH // HEADS
 # the fa16 configuration: full attention at 16³ (stage 2) and at 4³ (stage 4)
 FA16 = (False, False, True, False, True)
 FLASH_TOKENS = (4096, 4096 + N_MEM)   # 16³ queries, and keys with the memory tokens
+# the v1 path: LinearAttention(dim 48, 4 heads x 32, fused=True) at 64³ and 32³
+V1_DIM = 48
+# (batch, side, with the backward): 64³ at the sampler's batch, 64³ at the
+# training micro-batch, 32³ at the sampler's batch
+V1_CASES = ((8, 64, False), (4, 64, True), (8, 32, False))
+# the widened kernels' cases: K1/K2 (heads, d, dtype) at b2 x 32³ and K3 (d, dtype)
+# at b2 x 16³
+WIDE_FOLDED = ((8, 32, torch.bfloat16), (4, 64, torch.bfloat16), (2, 64, torch.bfloat16),
+               (4, 32, torch.float32))
+WIDE_FLASH = ((8, torch.bfloat16), (16, torch.bfloat16), (48, torch.bfloat16),
+              (128, torch.bfloat16), (32, torch.float32))
 # kernel vs plain version, scaled to each case's values (they shrink as
 # 1/sqrt(N) with the tokens): the same bf16 roundings, but K1 rounds exp(k - m)
 # with each chunk's max where the plain version uses the global max, sums run
@@ -94,11 +129,15 @@ FLASH_TOKENS = (4096, 4096 + N_MEM)   # 16³ queries, and keys with the memory t
 # ||kernel - plain|| <= rel_l2·||plain||; K1 must be exactly 0 off those blocks.
 # K3 and its plain version both compute in f32 and differ in the order of the
 # sums only, then round out to bf16: one bf16 ulp (2^-7·|plain|) plus
-# 1e-3·RMS elementwise; lse (f32) within 1e-4 + 1e-5·|plain|.
+# 1e-3·RMS elementwise; lse (f32) within 1e-4 + 1e-5·|plain|. K4a and K4b are
+# held to the same rule: both sides compute in f32 and differ only in the order
+# of the sums and in K4a's chunk max.
 TOL = {
     "folded_context": dict(atol_frac=3e-2, rtol=1e-2, rel_l2=1e-2),
     "folded_project": dict(atol_frac=3e-2, rtol=2e-2, rel_l2=1e-2),
     "flash_attention": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
+    "linear_context": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
+    "linear_project": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
 }
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 # the memory-heavy case: mem_k shifted up so that the 4 memory tokens outweigh
@@ -107,18 +146,28 @@ MEM_SHIFT = 12.0
 # the bf16 forward on the card against the f32 forward on the CPU: relative L2
 # error (measured ~1e-2 with the CPU's plain path in bf16)
 FORWARD_REL_TOL = 3e-2
+# the same forward at dtype="float32" on the card: both sides f32; K1 and K2
+# round p, v and ctx to bf16 on both, with K1's chunk max against the global one
+F32_FORWARD_REL_TOL = 1e-2
 # a bf16 gradient through the kernels against autograd of the f32 plain version
 BACKWARD_REL_TOL = 2e-2
+# the v1 module against the same weights through the folded kernels (which round
+# p and v to bf16; about 1% of RMS): outputs and input gradients, relative L2
+V1_FOLDED_REL_TOL, V1_FOLDED_GRAD_REL_TOL = 1e-2, 2e-2
 TRAIN_MICRO_BATCH, TRAIN_ACCUM, TRAIN_WARMUP, TRAIN_STEPS = 4, 2, 2, 8
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
     "folded_project": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
     "flash_attention": "flowtrain_stochastic_interpolation_torch/csrc/flash_attention.cu",
+    "linear_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
+    "linear_project": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
 }
 REPLACES = {
     "folded_context": "flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py:218",
     "folded_project": "flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py:283",
     "flash_attention": "flowtrain_stochastic_interpolation_tpu/ops/flash_attention.py:33",
+    "linear_context": "flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py:36",
+    "linear_project": "flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py:75",
 }
 KERNELS = tuple(REPLACES)
 
@@ -157,6 +206,29 @@ def read_counts() -> dict:
     return {**la.launch_counts, **fa.launch_counts}
 
 
+@contextlib.contextmanager
+def operand_dtypes():
+    """Record the dtype of the first operand of every call of the K1, K2 and K3
+    wrappers (``{name: {dtype, ...}}``) while the block runs."""
+    seen = {}
+    targets = [(la, "folded_context"), (la, "folded_project"), (fa, "flash_attention_forward")]
+    originals = [getattr(module, name) for module, name in targets]
+
+    def spy(name, fn):
+        def recorded(*args, **kwargs):
+            seen.setdefault(name, set()).add(args[0].dtype)
+            return fn(*args, **kwargs)
+        return recorded
+
+    for (module, name), fn in zip(targets, originals):
+        setattr(module, name, spy(name.replace("_forward", ""), fn))
+    try:
+        yield seen
+    finally:
+        for (module, name), fn in zip(targets, originals):
+            setattr(module, name, fn)
+
+
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
@@ -164,50 +236,68 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 # ---------------------------------------------------------------------------
 # Kernel inputs, checks and times
 # ---------------------------------------------------------------------------
-def make_inputs(batch: int, n: int, seed: int, spread: bool = False, mem_shift: float = 0.0):
-    """q, k, v as column slices of one [B, N, 384] bf16 projection (as the UNet
-    hands them over), and the folded memory KV [4, 128]."""
+def make_inputs(batch: int, n: int, seed: int, spread: bool = False, mem_shift: float = 0.0,
+                heads: int = HEADS, d: int = HEAD_DIM, dtype: torch.dtype = torch.bfloat16):
+    """q, k, v as column slices of one [B, N, 3·h·d] projection (as the UNet
+    hands them over), and the folded memory KV [4, h·d]."""
+    width = heads * d
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn(batch, n, 3 * WIDTH, generator=gen, device="cuda")
-    mem = torch.randn(2, N_MEM, WIDTH, generator=gen, device="cuda")
+    qkv = torch.randn(batch, n, 3 * width, generator=gen, device="cuda")
+    mem = torch.randn(2, N_MEM, width, generator=gen, device="cuda")
     mem[0] += mem_shift
     if spread:
         # one head's logits far below another's, in q and in k
-        d = WIDTH // HEADS
         for part in (0, 1):
-            cols = slice(part * WIDTH, (part + 1) * WIDTH)
+            cols = slice(part * width, (part + 1) * width)
             block = qkv[..., cols]
             block[..., :d] -= 200.0
-            block[..., 3 * d:] += 50.0
-    qkv = qkv.to(torch.bfloat16)
-    mem = mem.to(torch.bfloat16)
-    q, k, v = qkv[..., :WIDTH], qkv[..., WIDTH:2 * WIDTH], qkv[..., 2 * WIDTH:]
+            block[..., (heads - 1) * d:] += 50.0
+    qkv = qkv.to(dtype)
+    mem = mem.to(dtype)
+    q, k, v = qkv[..., :width], qkv[..., width:2 * width], qkv[..., 2 * width:]
     return q, k, v, mem[0].contiguous(), mem[1].contiguous()
 
 
-def make_attention_inputs(batch: int, n: int, m: int, seed: int, q_scale: float = 1.0):
-    """q as a column slice of a [B, N, 3, h, d] bf16 projection (as the UNet hands
-    it over); k and v contiguous [B, M, h, d] bf16 (the memory concatenation)."""
+def make_attention_inputs(batch: int, n: int, m: int, seed: int, q_scale: float = 1.0,
+                          d: int = HEAD_DIM, dtype: torch.dtype = torch.bfloat16):
+    """q as a column slice of a [B, N, 3, h, d] projection (as the UNet hands
+    it over); k and v contiguous [B, M, h, d] (the memory concatenation)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(batch, n, 3, HEADS, d, generator=gen, device="cuda")
+    qkv[:, :, 0] *= q_scale
+    k = torch.randn(batch, m, HEADS, d, generator=gen, device="cuda")
+    v = torch.randn(batch, m, HEADS, d, generator=gen, device="cuda")
+    return qkv.to(dtype)[:, :, 0], k.to(dtype), v.to(dtype)
+
+
+def make_v1_inputs(batch: int, n: int, seed: int, k_scale: float = 1.0, mem_shift: float = 0.0,
+                   dtype: torch.dtype = torch.bfloat16):
+    """As ``LinearAttention``'s v1 path hands them over: q a column slice of a
+    [B, N, 3, h, d] projection, and k, v [B, 4 + N, h, d] with the 4 memory
+    tokens first (k's shifted up by ``mem_shift``, the keys scaled by ``k_scale``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(batch, n, 3, HEADS, HEAD_DIM, generator=gen, device="cuda")
-    qkv[:, :, 0] *= q_scale
-    k = torch.randn(batch, m, HEADS, HEAD_DIM, generator=gen, device="cuda")
-    v = torch.randn(batch, m, HEADS, HEAD_DIM, generator=gen, device="cuda")
-    return qkv.to(torch.bfloat16)[:, :, 0], k.to(torch.bfloat16), v.to(torch.bfloat16)
+    qkv[:, :, 1] *= k_scale
+    mem = torch.randn(2, N_MEM, HEADS, HEAD_DIM, generator=gen, device="cuda")
+    mem[0] += mem_shift
+    qkv, mem = qkv.to(dtype), mem.to(dtype)
+    cat = lambda i: torch.cat([mem[i].expand(batch, -1, -1, -1), qkv[:, :, i + 1]], dim=1)
+    return qkv[:, :, 0], cat(0), cat(1)
 
 
-def head_diagonal(width: int, device) -> torch.Tensor:
+def head_diagonal(width: int, heads: int, device) -> torch.Tensor:
     """[width, width] mask of the per-head diagonal blocks."""
-    head = torch.arange(width, device=device) // (width // HEADS)
+    head = torch.arange(width, device=device) // (width // heads)
     return head[:, None] == head[None, :]
 
 
-def compare(name: str, label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def compare(name: str, label: str, got: torch.Tensor, want: torch.Tensor,
+            heads: int = HEADS) -> float:
     """Hold a kernel's output to its plain version's; returns the max abs error."""
     got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
     if name == "folded_context":
-        diag = head_diagonal(want.shape[-1], want.device)
+        diag = head_diagonal(want.shape[-1], heads, want.device)
         off = int(torch.count_nonzero(got[:, ~diag]).item())
         check(off == 0, f"{name} {label}: {off} nonzero entries off the head diagonal")
         rms = want[:, diag].square().mean().sqrt().item()
@@ -265,6 +355,62 @@ def phase_kernel_check():
         check(bool(torch.isfinite(lse).all()) and n_bad == 0,
               f"flash_attention {label}: lse outside the tolerance")
         del q, k, v, out, lse, want_out, want_lse
+
+    # the widened K1/K2 (their general path) and K3, each at its own tolerance
+    for i, (heads, d, dtype) in enumerate(WIDE_FOLDED):
+        label = f"b2 x {STAGE_TOKENS[1]} x {heads} heads x {d} {str(dtype)[6:]}"
+        q, k, v, mk, mv = make_inputs(2, STAGE_TOKENS[1], seed=20 + i, heads=heads, d=d,
+                                      dtype=dtype)
+        ctx_plain = la.folded_context_plain(k, v, mk, mv, heads)
+        ctx = la.folded_context(k, v, mk, mv, heads)
+        out_plain = la.folded_project_plain(q, ctx_plain, heads)
+        out = la.folded_project(q, ctx_plain, heads)
+        torch.cuda.synchronize()
+        check(out.dtype == dtype, f"folded_project {label}: output {out.dtype}")
+        for name, got, want in (("folded_context", ctx, ctx_plain),
+                                ("folded_project", out, out_plain)):
+            worst[name] = max(worst[name], compare(name, label, got, want, heads))
+        del q, k, v, ctx, ctx_plain, out, out_plain
+    n, m = FLASH_TOKENS
+    for i, (d, dtype) in enumerate(WIDE_FLASH):
+        label = f"b2 x {n} q x {m} kv x {HEADS} heads x {d} {str(dtype)[6:]}"
+        q, k, v = make_attention_inputs(2, n, m, seed=70 + i, d=d, dtype=dtype)
+        out, lse = fa.flash_attention_forward(q, k, v)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        check(out.dtype == dtype, f"flash_attention {label}: output {out.dtype}")
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       compare("flash_attention", label, out, want_out))
+        lse_err = (lse - want_lse).abs()
+        n_bad = int((lse_err > LSE_TOL["atol"] + LSE_TOL["rtol"] * want_lse.abs()).sum().item())
+        check(bool(torch.isfinite(lse).all()) and n_bad == 0,
+              f"flash_attention {label}: lse outside the tolerance")
+        del q, k, v, out, lse, want_out, want_lse
+
+    # K4a and K4b, this slice's kernels
+    v1_cases = [(f"b{BATCH} x {n} q x {n + N_MEM} kv", BATCH, n, {}) for n in STAGE_TOKENS[:2]]
+    v1_cases += [
+        (f"b2 x {STAGE_TOKENS[1]}+37 ragged", 2, STAGE_TOKENS[1] + 37, {}),
+        (f"b{BATCH} x {STAGE_TOKENS[1]} peaked (k x 8)", BATCH, STAGE_TOKENS[1],
+         dict(k_scale=8.0)),
+        (f"b{BATCH} x {STAGE_TOKENS[0]} memory-heavy (mem_k + {MEM_SHIFT:g})", BATCH,
+         STAGE_TOKENS[0], dict(mem_shift=MEM_SHIFT)),
+        (f"b{BATCH} x {STAGE_TOKENS[1]} float32", BATCH, STAGE_TOKENS[1],
+         dict(dtype=torch.float32)),
+    ]
+    for i, (label, b, n, options) in enumerate(v1_cases):
+        q, k, v = make_v1_inputs(b, n, seed=80 + i, **options)
+        ctx_plain = la.linear_context_plain(k, v)
+        ctx = la.linear_context(k, v)
+        out_plain = la.linear_project_plain(q, ctx_plain)
+        out = la.linear_project(q, ctx_plain)
+        torch.cuda.synchronize()
+        check(out.dtype == q.dtype and out.shape == q.shape,
+              f"linear_project {label}: output {out.dtype} {tuple(out.shape)}")
+        for name, got, want in (("linear_context", ctx, ctx_plain),
+                                ("linear_project", out, out_plain)):
+            worst[name] = max(worst[name], compare(name, label, got, want))
+        del q, k, v, ctx, ctx_plain, out, out_plain
     return worst
 
 
@@ -284,9 +430,9 @@ def time_ms(fn, reps: int = 20, rounds: int = 5, warmup: int = 3) -> float:
     return statistics.median(means)
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak_flop_per_s: float = PEAK_BF16_FLOP_PER_S):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -334,6 +480,32 @@ def phase_kernel_times():
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
             f"library (scaled_dot_product_attention) {library_ms:.4f} ms")
         del q, k, v, qt, kt, vt
+
+    # K4a and K4b: bf16 q, k, v in and out, f32 ctx, f32 products on the FP32 cores
+    for n in STAGE_TOKENS[:2]:
+        m = n + N_MEM
+        q, k, v = make_v1_inputs(BATCH, n, seed=110)
+        ctx = la.linear_context_plain(k, v)
+        ctx_bytes = BATCH * HEADS * HEAD_DIM * HEAD_DIM * 4
+        work = {
+            "linear_context": (
+                lambda: la.linear_context(k, v), lambda: la.linear_context_plain(k, v),
+                2 * BATCH * m * WIDTH * 2 + ctx_bytes, 2.0 * BATCH * m * WIDTH * HEAD_DIM,
+            ),
+            "linear_project": (
+                lambda: la.linear_project(q, ctx), lambda: la.linear_project_plain(q, ctx),
+                2 * BATCH * n * WIDTH * 2 + ctx_bytes, 2.0 * BATCH * n * WIDTH * HEAD_DIM,
+            ),
+        }
+        for name, (kernel, plain, nbytes, products) in work.items():
+            ms = time_ms(kernel)
+            plain_ms = time_ms(plain, reps=5)
+            bound_ms, bound_by = bound(nbytes, products, PEAK_F32_FLOP_PER_S)
+            rows[(name, BATCH, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by, library_ms=None)
+            say("kernel times", f"{name} b{BATCH} x {n} x {HEADS} x {HEAD_DIM}: {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library null")
+        del q, k, v, ctx
     return rows
 
 
@@ -373,6 +545,19 @@ def phase_backwards():
         f" (limit {BACKWARD_REL_TOL:g})")
     check(max(errs) <= BACKWARD_REL_TOL, f"folded backward relative L2 {max(errs):.3e}")
 
+    n = STAGE_TOKENS[1]
+    q, k, v = make_v1_inputs(1, n, seed=303)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    ours = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    la.linear_attention(*ours).backward(dout)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    la.linear_attention_reference(*ref).backward(dout.float())
+    errs = [rel_l2(a.grad, r.grad) for a, r in zip(ours, ref)]
+    say("backwards", f"v1 (K4a + K4b, closed form) b1 x {n} q x {n + N_MEM} kv x {HEADS} x "
+        f"{HEAD_DIM}, bf16 vs autograd of the f32 plain version: relative L2 dq {errs[0]:.3e}, "
+        f"dk {errs[1]:.3e}, dv {errs[2]:.3e} (limit {BACKWARD_REL_TOL:g})")
+    check(max(errs) <= BACKWARD_REL_TOL, f"v1 backward relative L2 {max(errs):.3e}")
+
 
 # ---------------------------------------------------------------------------
 # Sampling (the first slice's main path)
@@ -383,8 +568,11 @@ def seeded_model(cfg, seed: int = 0) -> UNet:
     return model
 
 
-def reference_check(label, model, cfg, side: int, expected: dict) -> None:
-    """A forward on the card (bf16, kernels) against the same weights in f32 on the CPU."""
+def reference_check(label, model, cfg, side: int, expected: dict, f32_card: bool = False) -> None:
+    """A forward on the card (bf16, kernels) against the same weights in f32 on
+    the CPU; with ``f32_card``, also the model at ``dtype="float32"`` on the card,
+    whose kernels must take f32 operands."""
+    expected = {name: expected.get(name, 0) for name in KERNELS}
     cpu = UNet.from_config(dataclasses.replace(cfg.model, dtype="float32"), device="cpu").eval()
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     gen = torch.Generator().manual_seed(1)
@@ -401,6 +589,23 @@ def reference_check(label, model, cfg, side: int, expected: dict) -> None:
     check(bool(torch.isfinite(got).all()), f"non-finite {label} {side}³ forward")
     check(launches == expected, f"{label} {side}³ forward launches {launches}, expected {expected}")
     check(rel < FORWARD_REL_TOL, f"{label} {side}³ forward relative error {rel:.3e}")
+    if not f32_card:
+        return
+    card = UNet.from_config(dataclasses.replace(cfg.model, dtype="float32"), device="cuda").eval()
+    card.load_state_dict(model.state_dict())
+    reset_counts()
+    with operand_dtypes() as dtypes, torch.inference_mode():
+        got = card(x.cuda(), t.cuda()).cpu()
+    launches = read_counts()
+    rel = rel_l2(got, ref)
+    say("sampling", f"{label} {side}³ b1 forward on the card at dtype=float32 (kernels launched "
+        f"{launches}, operand dtypes {dtypes}) vs f32 on the CPU: relative L2 error {rel:.3e} "
+        f"(tolerance {F32_FORWARD_REL_TOL:g})")
+    check(bool(torch.isfinite(got).all()), f"non-finite f32 {label} {side}³ forward")
+    check(launches == expected, f"f32 {label} {side}³ forward launches {launches}")
+    check(all(dtypes.get(name) == {torch.float32} for name in expected if expected[name]),
+          f"f32 {label} {side}³ forward: kernel operand dtypes {dtypes}")
+    check(rel < F32_FORWARD_REL_TOL, f"f32 {label} {side}³ forward relative error {rel:.3e}")
 
 
 def sample(label, model, cfg, n_frames: int, per_evaluation: dict) -> dict:
@@ -448,7 +653,7 @@ def phase_sampling():
     launches["sampling fa16"] = sample("fa16", fa16_model, fa16, 2, {
         "flash_attention": 2, "folded_context": 4, "folded_project": 4})
     reference_check("fa16", fa16_model, fa16, 64, {"folded_context": 4, "folded_project": 4,
-                                                   "flash_attention": 2})
+                                                   "flash_attention": 2}, f32_card=True)
     del fa16_model
     torch.cuda.empty_cache()
     return model, launches
@@ -497,9 +702,116 @@ def phase_forward(model):
 
 
 # ---------------------------------------------------------------------------
+# The v1 linear-attention path (the third slice's main path)
+# ---------------------------------------------------------------------------
+def linear_attention_widths(model: UNet):
+    """(dim, heads, dim_head) of the flagship's first LinearAttention (the 64³
+    stage; the 32³ stage has the same widths)."""
+    attn = next(m for m in model.modules() if isinstance(m, LinearAttention))
+    return attn.to_out.weight.shape[0], attn.heads, attn.dim_head
+
+
+def phase_v1(widths) -> dict:
+    """``LinearAttention(fused=True, fused_folded=False)`` in bf16 at the flagship's
+    widths: 64³ b8 forward, 64³ b4 forward and backward, 32³ b8 forward, each
+    held against the same weights through the folded kernels (K1 + K2)."""
+    dim, heads, dim_head = widths
+    check(widths == (V1_DIM, HEADS, HEAD_DIM), f"flagship LinearAttention widths {widths}")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    v1 = LinearAttention(dim, heads, dim_head, fused=True, fused_folded=False,
+                         dtype=torch.bfloat16, device="cuda")
+    for m in v1.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    folded = LinearAttention(dim, heads, dim_head, dtype=torch.bfloat16, device="cuda")
+    folded.load_state_dict(v1.state_dict())
+    launches = {}
+    for batch, side, backward in V1_CASES:
+        label = f"v1 {side}³ b{batch} {'forward+backward' if backward else 'forward'}"
+        x = torch.randn(batch, side, side, side, dim, generator=gen, device="cuda")
+        x = x.to(torch.bfloat16)
+        dout = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def call(module):
+            if not backward:
+                with torch.inference_mode():
+                    return module(x), None
+            xg = x.detach().requires_grad_()
+            out = module(xg)
+            out.backward(dout)
+            return out.detach(), xg.grad
+
+        def timed(module):
+            """1 warm-up and 5 timed calls: (last result, times in ms)."""
+            call(module)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                result = call(module)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - start) * 1e3)
+            return result, times
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (out, grad), times = timed(v1)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches[label] = counts
+        ms = statistics.median(times)
+        say("v1", f"{label}: {', '.join(f'{t:.2f}' for t in times)} ms, median {ms:.2f} ms per "
+            f"call; peak {peak:.2f} GiB allocated; launches in 6 calls {counts}")
+        per = {name: counts[name] / 6 for name in KERNELS}
+        want = {name: 1 if name in ("linear_context", "linear_project") else 0
+                for name in KERNELS}
+        check(per == want, f"{label}: launches per call {per}, expected {want}")
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        (ref, ref_grad), folded_times = timed(folded)
+        rel = rel_l2(out, ref)
+        msg = f"{label}: against the folded kernels (K1 + K2; median " \
+              f"{statistics.median(folded_times):.2f} ms per call): output relative L2 {rel:.3e} " \
+              f"(limit {V1_FOLDED_REL_TOL:g})"
+        check(rel <= V1_FOLDED_REL_TOL, msg)
+        if backward:
+            check(bool(torch.isfinite(grad).all()), f"{label}: non-finite input gradient")
+            grad_rel = rel_l2(grad, ref_grad)
+            msg += f", input gradient {grad_rel:.3e} (limit {V1_FOLDED_GRAD_REL_TOL:g})"
+            check(grad_rel <= V1_FOLDED_GRAD_REL_TOL, msg)
+        say("v1", msg)
+        del x, dout, out, grad, ref, ref_grad
+    del v1, folded
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Training (this slice's main path)
 # ---------------------------------------------------------------------------
-def train(label: str, full_attn, per_step: dict, profile: bool = False) -> dict:
+def sampler_after_training(label: str, model, state, cfg, gen) -> None:
+    """Two sampler calls on the model the train steps left in training mode, from
+    the same x0, agree exactly: the sampler runs the model in eval mode (no
+    dropout) and hands it back in training mode."""
+    check(model.training, f"{label}: the train step left the model in eval mode")
+    sampler = make_sampler(model, state.constants["embedding"], t0=cfg.inference.t0,
+                           tf=cfg.inference.tf, n_frames=3, substeps=1, method="euler",
+                           keep_trajectory=True)
+    x0 = initial_noise(gen, 1, cfg.data.shape, cfg.data.embedding_dim, torch.bfloat16,
+                       torch.device("cuda"))
+    first, second = sampler(x0), sampler(x0)
+    same = (torch.equal(first["trajectory"], second["trajectory"])
+            and torch.equal(first["decoded"], second["decoded"]))
+    gap = (first["trajectory"].float() - second["trajectory"].float()).abs().max().item()
+    say("train", f"{label}: two euler samplers (64³ b1, 2 evaluations) from the same x0 after "
+        f"training: identical {same} (max abs difference {gap:.3e}); model.training after "
+        f"{model.training}")
+    check(same, f"{label}: two samples from the same x0 differ by up to {gap:.3e}")
+    check(model.training, f"{label}: the sampler did not hand the model back in training mode")
+
+
+def train(label: str, full_attn, per_step: dict, profile: bool = False,
+          check_sampler: bool = False) -> dict:
     cfg = unconditional_64()
     cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, full_attn=full_attn),
@@ -556,6 +868,8 @@ def train(label: str, full_attn, per_step: dict, profile: bool = False) -> dict:
     if profile:
         profile_table("train", lambda: step(state, batches[-1], gen),
                       f"one {label} micro-step", median)
+    if check_sampler:
+        sampler_after_training(label, model, state, cfg, gen)
     del model, tx, state, step, batches, snapshot
     torch.cuda.empty_cache()
     return dict(ms=median, peak_gib=peak, launches=launches)
@@ -586,10 +900,13 @@ def main() -> int:
     phase_backwards()
     model, launches = phase_sampling()
     phase_forward(model)
+    widths = linear_attention_widths(model)
     del model
     torch.cuda.empty_cache()
+    launches.update(phase_v1(widths))
     launches["train flagship"] = train(
-        "flagship", None, {"folded_context": 6, "folded_project": 6})["launches"]
+        "flagship", None, {"folded_context": 6, "folded_project": 6},
+        check_sampler=True)["launches"]
     launches["train fa16"] = train(
         "fa16", FA16, {"flash_attention": 2, "folded_context": 4, "folded_project": 4},
         profile=True)["launches"]

@@ -50,18 +50,25 @@ def make_sampler(
     """Build ``sampler(x0) -> {"decoded", "nfe"[, "trajectory"]}`` for a UNet.
 
     ``x0`` is the initial state ``[B, X, Y, Z, E]`` on the model's device, in
-    the state dtype. ``nfe`` is the number of velocity evaluations.
+    the state dtype. ``nfe`` is the number of velocity evaluations. The model
+    runs in eval mode (no dropout, as the JAX sampler's ``deterministic=True``)
+    and is handed back in the mode it had.
     """
     nfe = (n_frames - 1) * substeps * stages(method)
 
     @torch.inference_mode()
     def sampler(x0: torch.Tensor) -> Dict[str, torch.Tensor]:
         kw = dict(t0=t0, tf=tf, n_frames=n_frames, substeps=substeps, method=method)
-        if keep_trajectory:
-            traj = solve_ode(model, x0, **kw)
-            final = traj[-1]
-        else:
-            final = solve_ode_final(model, x0, **kw)
+        was_training = model.training
+        model.eval()
+        try:
+            if keep_trajectory:
+                traj = solve_ode(model, x0, **kw)
+                final = traj[-1]
+            else:
+                final = solve_ode_final(model, x0, **kw)
+        finally:
+            model.train(was_training)
         out = {"decoded": decode(final, table), "nfe": nfe}
         if keep_trajectory:
             out["trajectory"] = traj

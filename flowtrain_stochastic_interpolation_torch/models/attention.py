@@ -3,11 +3,16 @@
 Port of ``flowtrain_stochastic_interpolation_tpu/models/attention.py``:
 
 * :class:`LinearAttention` — softmax-q / softmax-k linear attention with 4
-  memory KV tokens, at every UNet stage but the innermost. On CUDA, with at
-  least 4096 tokens and a folded width ``h·d`` that is a multiple of 128, it
-  runs the folded kernels K1 and K2 (:mod:`ops.linear_attention`) on the
-  ``[B, N, h·d]`` projection in place, whose wrappers raise on anything but
-  bf16; otherwise the einsum form with concatenated memory KV.
+  memory KV tokens, at every UNet stage but the innermost. It dispatches in
+  the JAX module's order: on CUDA, with ``fused_folded`` (the default), at
+  least 4096 tokens and a folded width ``h·d`` that is a multiple of 128, the
+  folded kernels K1 and K2 (:mod:`ops.linear_attention`) on the ``[B, N,
+  h·d]`` projection in place; else, with ``fused`` set, at least 32,768
+  tokens and a head width that is a multiple of 8, the v1 kernels K4a and K4b
+  (:func:`ops.linear_attention.linear_attention`) on the concatenated memory
+  KV; otherwise the einsum form. On CPU tensors the kernels' wrappers run
+  their plain versions. The kernels take bf16 or f32 and head widths up to
+  128, and raise on a wider head.
 * :class:`Attention` — full softmax attention with memory KV. With ``flash``
   on, at least 1024 query tokens and a head width that is a multiple of 8, it
   runs :func:`ops.flash_attention.flash_attention` (kernel K3 on the card, its
@@ -26,10 +31,12 @@ from torch import nn
 from flowtrain_stochastic_interpolation_torch.models.layers import Dense, RMSNorm
 from flowtrain_stochastic_interpolation_torch.ops.flash_attention import flash_attention
 from flowtrain_stochastic_interpolation_torch.ops.linear_attention import (
+    linear_attention,
     linear_attention_folded,
 )
 
 _FOLDED_LINEAR_MIN_TOKENS = 4096
+_FUSED_LINEAR_MIN_TOKENS = 32768
 _FLASH_MIN_TOKENS = 1024
 
 
@@ -57,14 +64,25 @@ class _TokenAttention(nn.Module):
         with torch.no_grad():
             self.mem_kv.normal_(0.0, 1.0, generator=generator)
 
+    def _split_with_memory(self, qkv: torch.Tensor):
+        """``[B, N, 3·h·d]`` projection -> q ``[B, N, h, d]`` (a slice of it) and
+        k, v ``[B, n_mem + N, h, d]`` with the memory tokens first."""
+        b, n = qkv.shape[:2]
+        qkv = qkv.reshape(b, n, 3, self.heads, self.dim_head)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        mk, mv = _memory_kv(self.mem_kv, b, q.dtype)
+        return q, torch.cat([mk, k], dim=1), torch.cat([mv, v], dim=1)
+
 
 class LinearAttention(_TokenAttention):
     """O(N) linear attention: q softmaxed over each head's features, k over tokens."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_mem_kv: int = 4,
-                 *, fused_folded: bool = True, folded_vjp: Optional[str] = None,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 *, fused: bool = False, fused_folded: bool = True,
+                 folded_vjp: Optional[str] = None, dtype: Optional[torch.dtype] = None,
+                 device=None):
         super().__init__(dim, heads, dim_head, num_mem_kv, dtype=dtype, device=device)
+        self.fused = fused
         self.fused_folded = fused_folded
         self.folded_vjp = folded_vjp
         self.out_norm = RMSNorm(dim, device=device)
@@ -79,12 +97,18 @@ class LinearAttention(_TokenAttention):
             and hidden % 128 == 0
         )
 
+    def takes_v1(self, n: int) -> bool:
+        """The v1-kernel dispatch rule, for ``n`` tokens (checked after the folded one)."""
+        return self.fused and n >= _FUSED_LINEAR_MIN_TOKENS and self.dim_head % 8 == 0
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, spatial = x.shape[0], x.shape[1:-1]
         hidden = self.heads * self.dim_head
         qkv = self.to_qkv(self.norm(x)).reshape(b, -1, 3 * hidden)
         if self.takes_folded(qkv):
             out = self.attend_folded(qkv)
+        elif self.takes_v1(qkv.shape[1]):
+            out = self.attend_v1(qkv)
         else:
             out = self.attend_einsum(qkv)
         out = self.to_out(out.reshape(b, *spatial, hidden))
@@ -100,14 +124,13 @@ class LinearAttention(_TokenAttention):
         return linear_attention_folded(q, k, v, fold(mem[0]), fold(mem[1]), heads=self.heads,
                                        backward=self.folded_vjp)
 
+    def attend_v1(self, qkv: torch.Tensor) -> torch.Tensor:
+        """K4a + K4b on q in place and the concatenated k, v: ``[B, N, h, d]``."""
+        return linear_attention(*self._split_with_memory(qkv))
+
     def attend_einsum(self, qkv: torch.Tensor) -> torch.Tensor:
         """The einsum form with concatenated memory KV: ``[B, N, h, d]``."""
-        b, n = qkv.shape[:2]
-        qkv = qkv.reshape(b, n, 3, self.heads, self.dim_head)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        mk, mv = _memory_kv(self.mem_kv, b, q.dtype)
-        k = torch.cat([mk, k], dim=1)
-        v = torch.cat([mv, v], dim=1)
+        q, k, v = self._split_with_memory(qkv)
         q = torch.softmax(q, dim=-1) * self.dim_head**-0.5
         k = torch.softmax(k, dim=1)
         context = torch.einsum("bnhd,bnhe->bhde", k, v)
@@ -129,11 +152,7 @@ class Attention(_TokenAttention):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, spatial = x.shape[0], x.shape[1:-1]
         hidden = self.heads * self.dim_head
-        qkv = self.to_qkv(self.norm(x)).reshape(b, -1, 3, self.heads, self.dim_head)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        mk, mv = _memory_kv(self.mem_kv, b, q.dtype)
-        k = torch.cat([mk, k], dim=1)
-        v = torch.cat([mv, v], dim=1)
+        q, k, v = self._split_with_memory(self.to_qkv(self.norm(x)).reshape(b, -1, 3 * hidden))
         if self.takes_flash(q.shape[1]):
             out = flash_attention(q, k, v)
         else:

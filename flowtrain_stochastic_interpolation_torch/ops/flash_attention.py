@@ -7,7 +7,9 @@ tokens into k and v):
 
 * K3, the forward (:func:`flash_attention_forward`): ``out`` in q's dtype and
   ``lse = logsumexp(s)`` in f32 ``[B, h, N]``, with every score, probability
-  and product in f32, as the TPU kernel ``_fa_kernel`` computes them.
+  and product in f32, as the TPU kernel ``_fa_kernel`` computes them. The
+  kernel takes bf16 or f32 operands and every head width d that is a multiple
+  of 8 up to 128 (:data:`MAX_HEAD_DIM`); a wider head raises ``ValueError``.
 * The backward (:func:`flash_attention_backward`): recomputation from ``lse``
   over blocks of 256 queries, in f32, as ``_bwd_blockwise`` does (an XLA scan
   in the JAX package, torch operations here on the card and the CPU alike).
@@ -30,7 +32,8 @@ import torch
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build
 
 SOURCE = "flash_attention"
-KERNEL_HEAD_DIMS = (32, 64)      # d the kernel is built for
+MAX_HEAD_DIM = 128               # the kernel takes every d % 8 == 0 up to this
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BLOCK_Q = 256                    # queries per block of the backward (JAX's default block_q)
 
 launch_counts: Dict[str, int] = {"flash_attention": 0}
@@ -69,19 +72,31 @@ def _library() -> ctypes.CDLL:
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.flash_attention_forward.argtypes = [
         vp, vp, vp, ll, ll, ll, ll, ll, ll, ll, ll, ll, vp, vp,
-        i32, i32, i32, i32, i32, ctypes.c_float, vp,
+        i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
     ]
     lib.flash_attention_forward.restype = i32
     return lib
 
 
+def check_head_dim(d: int) -> None:
+    """The head widths the CUDA kernels take: multiples of 8 up to 128."""
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"the CUDA kernels take head widths d that are multiples of 8 up to "
+            f"{MAX_HEAD_DIM}, got d = {d}"
+        )
+
+
 def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
-    """A bf16 CUDA ``[B, *, h, d]`` tensor whose d-wide rows are contiguous and
-    16-byte aligned; batch, tokens and heads may sit at any such stride."""
+    """A bf16 or f32 CUDA ``[B, *, h, d]`` tensor of q's dtype whose d-wide rows
+    are contiguous and 16-byte aligned; batch, tokens and heads may sit at any
+    stride that is a multiple of 8."""
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, q on {like.device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+    if t.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name} must be bfloat16 or float32, got {t.dtype}")
+    if t.dtype != like.dtype:
+        raise ValueError(f"{name} is {t.dtype}, q {like.dtype}")
     if t.ndim != 4:
         raise ValueError(f"{name} must be [B, tokens, heads, d], got {tuple(t.shape)}")
     if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
@@ -103,8 +118,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
         _check_operand(name, t, q)
     b, n, h, d = q.shape
     m = k.shape[1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, got {d}")
+    check_head_dim(d)
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(
             f"k {tuple(k.shape)} and v {tuple(v.shape)} must be [{b}, M, {h}, {d}]"
@@ -123,7 +137,8 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            out.data_ptr(), lse.data_ptr(), b, h, n, m, d, d**-0.5, stream,
+            out.data_ptr(), lse.data_ptr(), b, h, n, m, d, int(q.dtype == torch.float32),
+            d**-0.5, stream,
         )
     if code != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {code}")

@@ -1,11 +1,13 @@
-"""Head-folded linear attention, forward: kernels K1 and K2 with their plain versions.
+"""Linear attention: the folded kernels K1 and K2, the v1 kernels K4a and K4b,
+their plain versions, and the closed-form backwards.
 
-Port of the folded path of ``flowtrain_stochastic_interpolation_tpu/ops/
-linear_attention.py`` (``linear_attention_folded``). On ``[B, N, h·d]``
-tensors with ``h·d = 128``:
+Port of ``flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py``.
+
+The folded path (``linear_attention_folded``), on ``[B, N, h·d]`` tensors
+with ``h·d`` a multiple of 128:
 
 * K1, the context (``folded_context``): ``ctx = blockdiag(softmax over tokens
-  of [mem_k; k])ᵀ · [mem_v; v]``, f32 ``[B, 128, 128]`` with zeros off the
+  of [mem_k; k])ᵀ · [mem_v; v]``, f32 ``[B, h·d, h·d]`` with zeros off the
   head-diagonal blocks. p and v are rounded to bf16 in the product and
   accumulated in f32; the memory tokens enter in f32.
 * K2, the projection (``folded_project``): ``out = groupsoftmax(q) · d^-½ @
@@ -15,6 +17,23 @@ tensors with ``h·d = 128``:
   and ``_folded_vjp_bwd_closed_form_bf16``), plain XLA there and torch
   operations here; :func:`linear_attention_folded` is a
   ``torch.autograd.Function`` over K1 + K2 and them.
+
+The v1 path (``linear_attention``), on ``[B, N, h, d]`` q and ``[B, M, h, d]``
+k and v that already hold the memory tokens:
+
+* K4a, the context (``linear_context``, TPU ``_context_kernel``): ``ctx =
+  softmax over tokens of k, per column, ᵀ · v``, f32 ``[B, h, d, d]``, with
+  no memory seed and every product in f32.
+* K4b, the projection (``linear_project``, TPU ``_project_kernel``): ``out =
+  softmax_d(q) · d^-½ @ ctx`` in f32, output in q's dtype.
+* The backward: the closed form of JAX ``_bwd`` in f32 torch operations
+  (:func:`linear_attention_backward`).
+
+The kernels take bf16 or f32 operands and any head width d that is a
+multiple of 8 up to 128; the roundings above hold whatever the operands'
+dtype. K1 and K2 have a specialisation for 4 heads × 32 in bf16 (the
+flagship's layer) and a general path per (batch, head) for the rest, which
+K4a and K4b share.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then. For CUDA tensors it launches the hand-written kernel in
@@ -27,18 +46,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build
+from flowtrain_stochastic_interpolation_torch.ops.flash_attention import (
+    KERNEL_DTYPES,
+    check_head_dim,
+)
 
 SOURCE = "linear_attention"
-_FOLDED_WIDTH = 128   # h·d the kernels take
-_KERNEL_HEADS = 4     # heads the kernels take (d = 32)
-_K2_ROWS = 32         # rows per tile of the projection kernel (K2_ROWS in the source)
+_SPECIALISED = (4, 32)  # heads, d of the bf16 specialisation of K1 and K2
+_K2_ROWS = 32           # rows per tile of the specialised K2 (K2_ROWS in the source)
 
-launch_counts: Dict[str, int] = {"folded_context": 0, "folded_project": 0}
+launch_counts: Dict[str, int] = {
+    "folded_context": 0, "folded_project": 0, "linear_context": 0, "linear_project": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -91,43 +115,82 @@ def folded_project_plain(q: torch.Tensor, ctx: torch.Tensor, heads: int) -> torc
     return out.reshape(b, n, hd).to(q.dtype)
 
 
+def _token_softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over axis 1, the tokens, as a max, an exp and a sum: on the card
+    ``torch.softmax`` over a long axis that is not the last one is far slower."""
+    e = torch.exp(x - x.amax(dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def linear_context_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K4a in plain PyTorch: f32 ctx ``[B, h, d, d]`` of ``[B, M, h, d]`` k and v."""
+    ctx = torch.einsum("bmhd,bmhe->bhde", _token_softmax(k.float()), v.float())
+    return ctx.contiguous()
+
+
+def linear_project_plain(q: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    """K4b in plain PyTorch: ``softmax_d(q)·d^-½ @ ctx`` as ``[B, N, h, d]`` in q's dtype."""
+    p = torch.softmax(q.float(), dim=-1) * q.shape[-1] ** -0.5
+    return torch.einsum("bnhd,bhde->bnhe", p, ctx.float()).to(q.dtype)
+
+
+def linear_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Unfused f32 reference on ``[B, N, h, d]`` q and ``[B, M, h, d]`` k/v, in q's
+    dtype: the JAX package's ``linear_attention_reference``."""
+    return linear_project_plain(q, linear_context_plain(k, v))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE).library
-    vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    vp, ll, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.folded_context_forward.argtypes = [
         vp, vp, ll, ll, ll, ll, vp, vp, i32, i32, i32, i32, vp, vp, vp, vp, vp,
     ]
     lib.folded_context_forward.restype = i32
-    lib.folded_project_forward.argtypes = [
-        vp, ll, ll, vp, vp, i32, i32, i32, ctypes.c_float, vp,
-    ]
+    lib.folded_project_forward.argtypes = [vp, ll, ll, vp, vp, i32, i32, i32, f32, vp]
     lib.folded_project_forward.restype = i32
+    lib.context_forward.argtypes = [
+        vp, vp, i32, ll, ll, ll, ll, ll, ll, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
+        vp, vp, vp, vp, vp,
+    ]
+    lib.context_forward.restype = i32
+    lib.project_forward.argtypes = [
+        vp, i32, ll, ll, ll, vp, ll, ll, ll, vp, i32, i32, i32, i32, i32, i32, f32, vp,
+    ]
+    lib.project_forward.restype = i32
     return lib
 
 
-def _check_rows(name: str, t: torch.Tensor) -> None:
-    """A bf16 CUDA ``[B, N, 128]`` tensor whose 128-wide rows are contiguous and
-    16-byte aligned; tokens and batch items may sit at any stride."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
-    if t.ndim != 3 or t.shape[-1] != _FOLDED_WIDTH:
-        raise ValueError(f"{name} must be [B, N, {_FOLDED_WIDTH}], got {tuple(t.shape)}")
-    if t.stride(-1) != 1 or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
+def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor, ndim: int) -> None:
+    """A bf16 or f32 CUDA tensor of ``like``'s dtype and rank ``ndim`` whose last
+    axis is contiguous and 16-byte aligned; its other axes may sit at any stride
+    that is a multiple of 8 elements."""
+    if t.device.type != "cuda" or t.device != like.device:
+        raise ValueError(f"{name} must be a CUDA tensor on {like.device}, got {t.device}")
+    if t.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name} must be bfloat16 or float32, got {t.dtype}")
+    if t.dtype != like.dtype:
+        raise ValueError(f"{name} is {t.dtype}, the other operands {like.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} axes, got {tuple(t.shape)}")
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
         raise ValueError(
             f"{name} rows must be contiguous and 16-byte aligned "
             f"(strides {t.stride()}, address {t.data_ptr()})"
         )
 
 
-def _check_heads(heads: int) -> None:
-    if heads != _KERNEL_HEADS:
-        raise ValueError(f"the CUDA kernels take {_KERNEL_HEADS} heads of 32, got {heads}")
+def _check_ctx(ctx: torch.Tensor, q: torch.Tensor, shape: Sequence[int]) -> None:
+    if (ctx.device != q.device or ctx.dtype != torch.float32
+            or tuple(ctx.shape) != tuple(shape) or not ctx.is_contiguous()):
+        raise ValueError(
+            f"ctx must be a contiguous f32 {list(shape)} tensor on {q.device}, "
+            f"got {tuple(ctx.shape)} {ctx.dtype} on {ctx.device}"
+        )
 
 
 def _raise_on(code: int, what: str) -> None:
@@ -135,13 +198,94 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code}")
 
 
-def _context_chunk(batch: int, n: int, device: torch.device) -> int:
-    """Tokens per partial block of K1: 1024, halved until the grid covers the SMs twice."""
+def _context_chunk(blocks: int, n: int, device: torch.device) -> int:
+    """Tokens per partial block of a context: 1024, halved until the grid
+    (``blocks`` rows of chunks) covers the SMs twice."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     chunk = 1024
-    while chunk > 128 and batch * -(-n // chunk) < 2 * sms:
+    while chunk > 128 and blocks * -(-n // chunk) < 2 * sms:
         chunk //= 2
     return chunk
+
+
+def _project_grid(n: int, rows: int, blocks: int, device: torch.device) -> int:
+    """Blocks per grid row of a projection: one per tile of ``rows`` rows, at
+    most about 8 per SM over the ``blocks`` grid rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(-(-n // rows), max(1, 8 * sms // blocks))
+
+
+def _head_bucket(d: int) -> int:
+    """The kernels' head-width template that serves d (``DB`` in the source)."""
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def _context(k: torch.Tensor, v: torch.Tensor, k_strides, v_strides, heads: int, d: int,
+             mem_k: Optional[torch.Tensor], mem_v: Optional[torch.Tensor],
+             round_bf16: bool) -> torch.Tensor:
+    """The general context kernel over (token chunk, batch·head), then its combine.
+
+    With memory tokens it is K1: the folded ``[B, h·d, h·d]`` ctx with p and v
+    rounded to bf16. Without, it is K4a: ``[B, h, d, d]`` in f32 throughout.
+    """
+    b, n = k.shape[:2]
+    folded = mem_k is not None
+    lib = _library()
+    with torch.cuda.device(k.device):
+        chunk = _context_chunk(b * heads, n, k.device)
+        n_chunks = -(-n // chunk)
+        f32 = dict(dtype=torch.float32, device=k.device)
+        part_m = torch.empty(b * heads, n_chunks, d, **f32)
+        part_s = torch.empty(b * heads, n_chunks, d, **f32)
+        part_ctx = torch.empty(b * heads, n_chunks, d, d, **f32)
+        if folded:
+            ctx = torch.empty(b, heads * d, heads * d, **f32)
+        else:
+            ctx = torch.empty(b, heads, d, d, **f32)
+        stream = torch.cuda.current_stream(k.device).cuda_stream
+        code = lib.context_forward(
+            k.data_ptr(), v.data_ptr(), int(k.dtype == torch.float32), *k_strides, *v_strides,
+            mem_k.data_ptr() if folded else None, mem_v.data_ptr() if folded else None,
+            mem_k.shape[0] if folded else 0, b, heads, d, n, chunk, int(round_bf16),
+            heads * d if folded else d, part_m.data_ptr(), part_s.data_ptr(),
+            part_ctx.data_ptr(), ctx.data_ptr(), stream,
+        )
+    _raise_on(code, "context")
+    return ctx
+
+
+def _project(q: torch.Tensor, q_strides, ctx: torch.Tensor, ctx_strides, heads: int, d: int,
+             round_bf16: bool) -> torch.Tensor:
+    """The general projection kernel over (row tile, batch·head): ``[B, N, h·d]``
+    contiguous, in q's dtype."""
+    b, n = q.shape[:2]
+    lib = _library()
+    with torch.cuda.device(q.device):
+        out = torch.empty(b, n, heads * d, dtype=q.dtype, device=q.device)
+        if n == 0:
+            return out
+        grid_x = _project_grid(n, 4096 // _head_bucket(d), b * heads, q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.project_forward(
+            q.data_ptr(), int(q.dtype == torch.float32), *q_strides, ctx.data_ptr(),
+            *ctx_strides, out.data_ptr(), b, heads, d, n, grid_x, int(round_bf16),
+            d**-0.5, stream,
+        )
+    _raise_on(code, "project")
+    return out
+
+
+def _folded_head_dim(t: torch.Tensor, heads: int) -> int:
+    if t.ndim != 3 or heads < 1 or t.shape[-1] % heads:
+        raise ValueError(f"[B, N, h·d] with h = {heads} heads, got {tuple(t.shape)}")
+    d = t.shape[-1] // heads
+    check_head_dim(d)
+    return d
+
+
+def _specialised(t: torch.Tensor, heads: int) -> bool:
+    """The 4 × 32 bf16 specialisation of K1 and K2 serves this call."""
+    return t.dtype == torch.bfloat16 and (heads, t.shape[-1] // heads) == _SPECIALISED
 
 
 def folded_context(k: torch.Tensor, v: torch.Tensor, mem_k: torch.Tensor,
@@ -149,24 +293,28 @@ def folded_context(k: torch.Tensor, v: torch.Tensor, mem_k: torch.Tensor,
     """K1: the f32 context ``[B, h·d, h·d]`` of keys ``k`` and values ``v``."""
     if k.device.type == "cpu":
         return folded_context_plain(k, v, mem_k, mem_v, heads)
-    _check_heads(heads)
-    _check_rows("k", k)
-    _check_rows("v", v)
-    if v.shape != k.shape or v.device != k.device:
-        raise ValueError(f"v {tuple(v.shape)} on {v.device} must match k {tuple(k.shape)} on {k.device}")
+    d = _folded_head_dim(k, heads)
+    _check_operand("k", k, k, 3)
+    _check_operand("v", v, k, 3)
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)} must match k {tuple(k.shape)}")
+    b, n, hd = k.shape
     for name, mem in (("mem_k", mem_k), ("mem_v", mem_v)):
-        if (mem.device != k.device or mem.dtype != torch.bfloat16 or mem.ndim != 2
-                or mem.shape[1] != _FOLDED_WIDTH or mem.shape[0] < 1
-                or not mem.is_contiguous()):
+        if (mem.device != k.device or mem.dtype != k.dtype or mem.ndim != 2
+                or mem.shape[1] != hd or mem.shape[0] < 1 or not mem.is_contiguous()):
             raise ValueError(
-                f"{name} must be a contiguous bf16 [n_mem >= 1, {_FOLDED_WIDTH}] tensor "
+                f"{name} must be a contiguous {k.dtype} [n_mem >= 1, {hd}] tensor "
                 f"on {k.device}, got {tuple(mem.shape)} {mem.dtype} on {mem.device}"
             )
     if mem_v.shape != mem_k.shape:
         raise ValueError("mem_k and mem_v must have the same shape")
-    b, n, hd = k.shape
     if n < 1:
         raise ValueError("k must hold at least one token")
+    if not _specialised(k, heads):
+        ctx = _context(k, v, (k.stride(0), k.stride(1), d), (v.stride(0), v.stride(1), d),
+                       heads, d, mem_k, mem_v, round_bf16=True)
+        launch_counts["folded_context"] += 1
+        return ctx
     lib = _library()
     with torch.cuda.device(k.device):
         chunk = _context_chunk(b, n, k.device)
@@ -174,7 +322,7 @@ def folded_context(k: torch.Tensor, v: torch.Tensor, mem_k: torch.Tensor,
         f32 = dict(dtype=torch.float32, device=k.device)
         part_m = torch.empty(b, n_chunks, hd, **f32)
         part_s = torch.empty(b, n_chunks, hd, **f32)
-        part_ctx = torch.empty(b, n_chunks, heads, hd // heads, hd // heads, **f32)
+        part_ctx = torch.empty(b, n_chunks, heads, d, d, **f32)
         ctx = torch.empty(b, hd, hd, **f32)
         stream = torch.cuda.current_stream(k.device).cuda_stream
         code = lib.folded_context_forward(
@@ -191,31 +339,60 @@ def folded_project(q: torch.Tensor, ctx: torch.Tensor, heads: int) -> torch.Tens
     """K2: ``groupsoftmax(q) · d^-½ @ ctx`` as ``[B, N, h·d]`` in q's dtype."""
     if q.device.type == "cpu":
         return folded_project_plain(q, ctx, heads)
-    _check_heads(heads)
-    _check_rows("q", q)
+    d = _folded_head_dim(q, heads)
+    _check_operand("q", q, q, 3)
     b, n, hd = q.shape
-    if (ctx.device != q.device or ctx.dtype != torch.float32
-            or tuple(ctx.shape) != (b, hd, hd) or not ctx.is_contiguous()):
-        raise ValueError(
-            f"ctx must be a contiguous f32 [{b}, {hd}, {hd}] tensor on {q.device}, "
-            f"got {tuple(ctx.shape)} {ctx.dtype} on {ctx.device}"
-        )
+    _check_ctx(ctx, q, (b, hd, hd))
+    if not _specialised(q, heads):
+        out = _project(q, (q.stride(0), q.stride(1), d), ctx, (hd * hd, d * hd + d, hd),
+                       heads, d, round_bf16=True)
+        launch_counts["folded_project"] += 1
+        return out
     lib = _library()
     with torch.cuda.device(q.device):
         out = torch.empty(b, n, hd, dtype=q.dtype, device=q.device)
         if n == 0:
             return out
-        n_tiles = -(-n // _K2_ROWS)
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        grid_x = min(n_tiles, max(1, 8 * sms // b))
+        grid_x = _project_grid(n, _K2_ROWS, b, q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.folded_project_forward(
             q.data_ptr(), q.stride(1), q.stride(0), ctx.data_ptr(), out.data_ptr(),
-            b, n, grid_x, (hd // heads) ** -0.5, stream,
+            b, n, grid_x, d**-0.5, stream,
         )
     _raise_on(code, "folded_project")
     launch_counts["folded_project"] += 1
     return out
+
+
+def linear_context(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K4a: the f32 context ``[B, h, d, d]`` of ``[B, M, h, d]`` keys and values
+    (the memory tokens already among them)."""
+    if k.device.type == "cpu":
+        return linear_context_plain(k, v)
+    _check_operand("k", k, k, 4)
+    _check_operand("v", v, k, 4)
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)} must match k {tuple(k.shape)}")
+    b, m, h, d = k.shape
+    check_head_dim(d)
+    if m < 1:
+        raise ValueError("k must hold at least one token")
+    ctx = _context(k, v, k.stride()[:3], v.stride()[:3], h, d, None, None, round_bf16=False)
+    launch_counts["linear_context"] += 1
+    return ctx
+
+
+def linear_project(q: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    """K4b: ``softmax_d(q)·d^-½ @ ctx`` as ``[B, N, h, d]`` in q's dtype."""
+    if q.device.type == "cpu":
+        return linear_project_plain(q, ctx)
+    _check_operand("q", q, q, 4)
+    b, n, h, d = q.shape
+    check_head_dim(d)
+    _check_ctx(ctx, q, (b, h, d, d))
+    out = _project(q, q.stride()[:3], ctx, (h * d * d, d * d, d), h, d, round_bf16=False)
+    launch_counts["linear_project"] += 1
+    return out.view(b, n, h, d)
 
 
 # ---------------------------------------------------------------------------
@@ -371,3 +548,46 @@ def linear_attention_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "(ROADMAP Queue 1, the 128³ memory forms: the chunked folded backward)"
             )
     return _LinearAttentionFolded.apply(q, k, v, mem_k, mem_v, heads, backward)
+
+
+# ---------------------------------------------------------------------------
+# The v1 path: K4a + K4b forward, the closed-form backward
+# ---------------------------------------------------------------------------
+def linear_attention_backward(q, k, v, dout):
+    """``(dq, dk, dv)``: the closed form of the JAX package's ``_bwd``, every
+    stream in f32; each intermediate is bottlenecked by a ``[d, d]`` context."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, do = (t.float() for t in (q, k, v, dout))
+    p_q = torch.softmax(qf, dim=-1)                               # [b, n, h, d]
+    p_k = _token_softmax(kf)                                      # [b, m, h, d]
+    ctx = torch.einsum("bmhd,bmhe->bhde", p_k, vf)
+    # out = scale * p_q @ ctx
+    d_ctx = scale * torch.einsum("bnhd,bnhe->bhde", p_q, do)
+    d_pq = scale * torch.einsum("bnhe,bhde->bnhd", do, ctx)
+    dq = p_q * (d_pq - (d_pq * p_q).sum(dim=-1, keepdim=True))
+    dv = torch.einsum("bmhd,bhde->bmhe", p_k, d_ctx)
+    d_pk = torch.einsum("bmhe,bhde->bmhd", vf, d_ctx)
+    dk = p_k * (d_pk - (d_pk * p_k).sum(dim=1, keepdim=True))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _LinearAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return linear_project(q, linear_context(k, v))
+
+    @staticmethod
+    def backward(ctx, dout):
+        return linear_attention_backward(*ctx.saved_tensors, dout)
+
+
+def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """v1 linear attention on ``[B, N, h, d]`` q and ``[B, M, h, d]`` k/v, differentiable.
+
+    q is softmaxed over its features and scaled by ``d^-½``, k over the tokens;
+    the context ``softmax(k)ᵀ v`` is applied to q. The caller concatenates the
+    memory tokens into k and v. Returns ``[B, N, h, d]`` in q's dtype. The
+    forward is K4a + K4b, the backward :func:`linear_attention_backward`.
+    """
+    return _LinearAttention.apply(q, k, v)

@@ -23,6 +23,12 @@ names = [m.name for m in pkgutil.walk_packages({PACKAGE}.__path__, "{PACKAGE}.")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from {PACKAGE}.ops.linear_attention import (  # the v1 path and its kernels
+    linear_attention, linear_attention_backward, linear_attention_reference, linear_context,
+    linear_context_plain, linear_project, linear_project_plain,
+)
+from {PACKAGE}.models.attention import LinearAttention
+assert LinearAttention(8, fused=True, device="cpu").fused
 assert not any(n.split(".")[0] in {POISONED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), "modules")
 """

@@ -1,5 +1,6 @@
-"""The kernels K1 and K2 (folded linear attention) and K3 (flash attention),
-their plain versions, and the backwards that train through them.
+"""The kernels K1 and K2 (folded linear attention), K3 (flash attention) and
+K4a and K4b (v1 linear attention), their plain versions, and the backwards
+that train through them.
 
 Imports nothing of JAX, so it runs where JAX is not installed, with
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``. Tests
@@ -15,6 +16,12 @@ from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
 
 HEADS, WIDTH = 4, 128
+
+
+def _launched(**counts):
+    """``la.launch_counts`` after the given launches and no others."""
+    return {**dict.fromkeys(("folded_context", "folded_project", "linear_context",
+                             "linear_project"), 0), **counts}
 
 
 @pytest.fixture
@@ -96,7 +103,7 @@ def test_kernels_match_plain_versions(cuda, batch, n):
     out = la.folded_project(q, ctx_plain, HEADS)
     out_plain = la.folded_project_plain(q, ctx_plain, HEADS)
     torch.cuda.synchronize()
-    assert la.launch_counts == {"folded_context": 1, "folded_project": 1}
+    assert la.launch_counts == _launched(folded_context=1, folded_project=1)
     # the tolerances chip_smoke.py holds the kernels to
     _assert_close_to_plain(ctx, ctx_plain, atol_frac=3e-2, rtol=1e-2)
     _assert_close_to_plain(out, out_plain, atol_frac=3e-2, rtol=2e-2)
@@ -119,10 +126,14 @@ def test_kernels_survive_cross_head_logit_spread(cuda):
 @pytest.mark.gpu
 def test_wrappers_raise_instead_of_falling_back(cuda):
     q, k, v, mk, mv = _qkv(1, 256, cuda)
-    with pytest.raises(ValueError, match="bfloat16"):
-        la.folded_context(k.float(), v.float(), mk, mv, HEADS)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        la.folded_context(k.half(), v.half(), mk.half(), mv.half(), HEADS)
+    with pytest.raises(ValueError, match="float32"):
+        la.folded_context(k.float(), v.float(), mk, mv, HEADS)  # memory tokens in bf16
     with pytest.raises(ValueError, match="heads"):
-        la.folded_context(k, v, mk, mv, 2)
+        la.folded_context(k, v, mk, mv, 3)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        la.folded_context(k, v, mk, mv, 32)  # d = 4
     every_other = torch.zeros(1, 256, 2 * WIDTH, device=cuda, dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         la.folded_project(every_other, torch.zeros(1, WIDTH, WIDTH, device=cuda), HEADS)
@@ -144,12 +155,19 @@ def _linear_attention_16cubed(device, dtype):
 @pytest.mark.gpu
 def test_linear_attention_f32_on_cuda_raises_instead_of_taking_einsum(cuda):
     """4096 tokens and hidden 128 on CUDA take the folded kernels whatever the
-    dtype; their wrappers raise on f32 rather than the block running einsum."""
+    dtype: f32 launches them (the general path), and a head wider than the
+    kernels take raises rather than the block running einsum."""
     attn, x = _linear_attention_16cubed(cuda, torch.float32)
     la.reset_launch_counts()
-    with torch.inference_mode(), pytest.raises(ValueError, match="bfloat16"):
-        attn(x)
-    assert la.launch_counts == {"folded_context": 0, "folded_project": 0}
+    with torch.inference_mode():
+        out = attn(x)
+    assert la.launch_counts == _launched(folded_context=1, folded_project=1)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    wide = LinearAttention(16, heads=1, dim_head=256, device=cuda)
+    la.reset_launch_counts()
+    with torch.inference_mode(), pytest.raises(ValueError, match="up to 128"):
+        wide(x)
+    assert la.launch_counts == _launched()
 
 
 @pytest.mark.gpu
@@ -158,7 +176,7 @@ def test_linear_attention_bf16_on_cuda_launches_the_kernels(cuda):
     la.reset_launch_counts()
     with torch.inference_mode():
         out = attn(x)
-    assert la.launch_counts == {"folded_context": 1, "folded_project": 1}
+    assert la.launch_counts == _launched(folded_context=1, folded_project=1)
     assert out.shape == x.shape and torch.isfinite(out).all()
 
 
@@ -213,8 +231,11 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda):
     q, k, v = _attention_operands(1, 64, 68, cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention_forward(q.float(), k, v)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention_forward(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(ValueError, match="up to 128"):
+        wide = torch.zeros(1, 64, 4, 136, device=cuda, dtype=torch.bfloat16)
+        fa.flash_attention_forward(wide, wide, wide)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_attention_forward(q[..., :12], k[..., :12], v[..., :12])
     every_other = torch.zeros(1, 64, 4, 64, device=cuda, dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_forward(every_other, k, v)
@@ -251,9 +272,169 @@ def test_folded_backward_bf16_matches_autograd_of_the_f32_reference(cuda):
     ours = [t.detach().clone().requires_grad_() for t in (q, k, v, mk, mv)]
     la.reset_launch_counts()
     la.linear_attention_folded(*ours, heads=HEADS).backward(dout)
-    assert la.launch_counts == {"folded_context": 1, "folded_project": 1}
+    assert la.launch_counts == _launched(folded_context=1, folded_project=1)
     ref = [t.detach().float().requires_grad_() for t in (q, k, v, mk, mv)]
     _einsum_reference(*ref).backward(dout.float())
     for a, b in zip(ours, ref):
         assert a.grad.dtype == torch.bfloat16
         assert _rel_l2(a.grad, b.grad) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# The widened K1/K2/K3 and the v1 kernels K4a/K4b (on the card)
+# ---------------------------------------------------------------------------
+def _folded_operands(batch, n, heads, d, device, seed=0, dtype=torch.bfloat16):
+    """q, k, v as column slices of one [B, N, 3·h·d] tensor, and memory KV [4, h·d]."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    hd = heads * d
+    qkv = torch.randn(batch, n, 3 * hd, generator=gen, device=device).to(dtype)
+    mem = torch.randn(2, 4, hd, generator=gen, device=device).to(dtype)
+    return qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], mem[0].contiguous(), mem[1].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d,dtype", [
+    (8, 32, torch.bfloat16), (4, 64, torch.bfloat16), (2, 64, torch.bfloat16),
+    (4, 32, torch.float32),
+])
+def test_widened_folded_kernels_match_plain_versions(cuda, heads, d, dtype):
+    """The general path of K1 and K2 at b2 × 32,768 + 37 tokens, held to the
+    specialisation's tolerances."""
+    q, k, v, mk, mv = _folded_operands(2, 32768 + 37, heads, d, cuda, seed=heads * d, dtype=dtype)
+    la.reset_launch_counts()
+    ctx = la.folded_context(k, v, mk, mv, heads)
+    ctx_plain = la.folded_context_plain(k, v, mk, mv, heads)
+    out = la.folded_project(q, ctx_plain, heads)
+    out_plain = la.folded_project_plain(q, ctx_plain, heads)
+    torch.cuda.synchronize()
+    assert la.launch_counts == _launched(folded_context=1, folded_project=1)
+    assert out.dtype == dtype and ctx.dtype == torch.float32
+    head = torch.arange(heads * d, device=cuda) // d
+    assert torch.count_nonzero(ctx[:, head[:, None] != head[None, :]]) == 0
+    _assert_close_to_plain(ctx, ctx_plain, atol_frac=3e-2, rtol=1e-2)
+    _assert_close_to_plain(out, out_plain, atol_frac=3e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype", [
+    (8, torch.bfloat16), (16, torch.bfloat16), (48, torch.bfloat16), (128, torch.bfloat16),
+    (32, torch.float32),
+])
+def test_widened_flash_kernel_matches_plain_version(cuda, d, dtype):
+    """K3 at b2 × 4096 queries × 4100 keys for every head-width bucket and f32."""
+    q, k, v = _attention_operands(2, 4096, 4100, cuda, seed=d, d=d)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    fa.reset_launch_counts()
+    out, lse = fa.flash_attention_forward(q, k, v)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launch_counts == {"flash_attention": 1}
+    assert out.dtype == dtype and out.shape == q.shape
+    assert_flash_close(out, lse, want_out, want_lse)
+
+
+def _v1_operands(batch, n, heads, d, device, seed=0, dtype=torch.bfloat16, k_scale=1.0,
+                 mem_shift=0.0):
+    """q as a slice of a [B, N, 3, h, d] projection, and k, v [B, 4 + N, h, d]
+    with 4 memory tokens first (shifted up by ``mem_shift`` in k)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(batch, n, 3, heads, d, generator=gen, device=device)
+    qkv[:, :, 1] *= k_scale
+    mem = torch.randn(2, 4, heads, d, generator=gen, device=device)
+    mem[0] += mem_shift
+    qkv, mem = qkv.to(dtype), mem.to(dtype)
+    cat = lambda i: torch.cat([mem[i].expand(batch, -1, -1, -1), qkv[:, :, i + 1]], dim=1)
+    return qkv[:, :, 0], cat(0), cat(1)
+
+
+def _assert_v1_close(got, want):
+    """K4a and K4b against their plain versions: both sides compute in f32 and
+    differ only in the order of the sums and in the chunk max, so one bf16 ulp
+    (2^-7·|plain|) plus 1e-3·RMS elementwise and 4e-3 in relative L2."""
+    got, want = got.float(), want.float()
+    rms = want.square().mean().sqrt().item()
+    torch.testing.assert_close(got, want, rtol=2.0**-7, atol=1e-3 * rms)
+    assert _rel_l2(got, want) <= 4e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n,heads,d,dtype,options", [
+    (2, 32768, 4, 32, torch.bfloat16, {}),                     # the 32³ stage
+    (1, 32768 + 37, 4, 32, torch.bfloat16, {}),                # ragged
+    (1, 32768, 4, 32, torch.bfloat16, dict(k_scale=8.0)),      # peaked column max
+    (1, 32768, 4, 32, torch.bfloat16, dict(mem_shift=12.0)),   # memory tokens dominate
+    (1, 32768, 4, 32, torch.float32, {}),
+    (1, 4096 + 37, 2, 8, torch.bfloat16, {}),
+    (1, 4096 + 37, 2, 48, torch.bfloat16, {}),
+    (1, 4096 + 37, 1, 128, torch.float32, {}),
+])
+def test_v1_kernels_match_plain_versions(cuda, batch, n, heads, d, dtype, options):
+    q, k, v = _v1_operands(batch, n, heads, d, cuda, seed=n + d, dtype=dtype, **options)
+    la.reset_launch_counts()
+    ctx = la.linear_context(k, v)
+    ctx_plain = la.linear_context_plain(k, v)
+    out = la.linear_project(q, ctx_plain)
+    out_plain = la.linear_project_plain(q, ctx_plain)
+    torch.cuda.synchronize()
+    assert la.launch_counts == _launched(linear_context=1, linear_project=1)
+    assert ctx.shape == (batch, heads, d, d) and ctx.dtype == torch.float32
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    _assert_v1_close(ctx, ctx_plain)
+    _assert_v1_close(out, out_plain)
+
+
+@pytest.mark.gpu
+def test_every_wrapper_raises_past_a_head_width_of_128(cuda):
+    q, k, v = _v1_operands(1, 64, 1, 136, cuda)
+    with pytest.raises(ValueError, match="up to 128"):
+        la.linear_context(k, v)
+    with pytest.raises(ValueError, match="up to 128"):
+        la.linear_project(q, torch.zeros(1, 1, 136, 136, device=cuda))
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.flash_attention_forward(q, k, v)
+    fq, fk, fv, mk, mv = _folded_operands(1, 64, 2, 136, cuda)
+    with pytest.raises(ValueError, match="up to 128"):
+        la.folded_context(fk, fv, mk, mv, 2)
+    with pytest.raises(ValueError, match="up to 128"):
+        la.folded_project(fq, torch.zeros(1, 272, 272, device=cuda), 2)
+
+
+@pytest.mark.gpu
+def test_v1_backward_bf16_matches_autograd_of_the_f32_plain_version(cuda):
+    """32³ b1: K4a + K4b forward, the closed-form backward, against autograd of
+    the f32 plain composition on the same bf16 inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _v1_operands(1, 32768, 4, 32, cuda, seed=8)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                       device=cuda).to(torch.bfloat16)
+    ours = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    la.reset_launch_counts()
+    la.linear_attention(*ours).backward(dout)
+    assert la.launch_counts == _launched(linear_context=1, linear_project=1)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    la.linear_attention_reference(*ref).backward(dout.float())
+    for a, b in zip(ours, ref):
+        assert a.grad.dtype == torch.bfloat16
+        assert _rel_l2(a.grad, b.grad) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_linear_attention_fused_on_cuda_launches_the_v1_kernels(cuda):
+    """32³ = 32,768 tokens, 4 heads × 32, bf16: the v1 dispatch, one K4a and
+    one K4b per forward, within 1e-2 relative L2 of the folded form."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    v1 = LinearAttention(48, fused=True, fused_folded=False, dtype=torch.bfloat16, device=cuda)
+    for m in v1.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    folded = LinearAttention(48, dtype=torch.bfloat16, device=cuda)
+    folded.load_state_dict(v1.state_dict())
+    x = torch.randn(1, 32, 32, 32, 48, generator=gen, device=cuda).to(torch.bfloat16)
+    la.reset_launch_counts()
+    with torch.inference_mode():
+        out = v1(x)
+    assert la.launch_counts == _launched(linear_context=1, linear_project=1)
+    with torch.inference_mode():
+        ref = folded(x)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert _rel_l2(out, ref) <= 1e-2

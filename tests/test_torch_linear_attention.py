@@ -86,6 +86,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     la.reset_launch_counts()
     ctx = la.folded_context(k, v, mk, mv, HEADS)
     out = la.folded_project(q, ctx, HEADS)
-    assert la.launch_counts == {"folded_context": 0, "folded_project": 0}
+    assert la.launch_counts == {"folded_context": 0, "folded_project": 0,
+                                "linear_context": 0, "linear_project": 0}
     torch.testing.assert_close(ctx, la.folded_context_plain(k, v, mk, mv, HEADS), rtol=0, atol=0)
     torch.testing.assert_close(out, la.folded_project_plain(q, ctx, HEADS), rtol=0, atol=0)

@@ -118,3 +118,40 @@ def test_embed_and_decode_match_jax():
         decode(torch.from_numpy(noisy), torch.from_numpy(table)).numpy(),
         np.asarray(jax_embedding.decode(jnp.asarray(noisy), jnp.asarray(table))),
     )
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_sampler_runs_the_model_in_eval_mode_and_restores_its_mode(mode):
+    """After a train step (which leaves the model in training mode) two sampler
+    calls from the same x0 agree exactly with each other and with a sample of
+    the model put in eval mode by hand: no dropout while sampling, as the JAX
+    sampler's ``deterministic=True``. The model's mode is handed back."""
+    import dataclasses
+
+    from flowtrain_stochastic_interpolation_torch.data.synthetic import synthetic_geology_batch
+    from flowtrain_stochastic_interpolation_torch.inference import make_sampler as port_sampler
+    from flowtrain_stochastic_interpolation_torch.train.loop import init_train_state
+    from flowtrain_stochastic_interpolation_torch.train.steps import make_train_step
+
+    cfg = port_config.tiny_test()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.5))
+    model, tx, state = init_train_state(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    state, _ = make_train_step(model, tx, cfg)(
+        state, synthetic_geology_batch(gen, 2, cfg.data.shape), gen)
+    assert model.training
+    model.train(mode == "train")
+
+    table = torch.from_numpy(port_simplex_embedding(E, E))
+    sampler = port_sampler(model, table, n_frames=3, substeps=1, method="euler",
+                           keep_trajectory=True)
+    x0 = initial_noise(torch.Generator().manual_seed(SEED), 2, SHAPE, E, torch.float32,
+                       torch.device("cpu"))
+    first, second = sampler(x0), sampler(x0)
+    assert model.training == (mode == "train")
+    model.eval()
+    by_hand = sampler(x0)
+    assert not model.training
+    for other in (second, by_hand):
+        torch.testing.assert_close(other["trajectory"], first["trajectory"], rtol=0, atol=0)
+        assert torch.equal(other["decoded"], first["decoded"])
