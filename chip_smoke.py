@@ -7,8 +7,9 @@ Phases, each printed on one flushed line with the seconds since start:
 
 0. device: the card's name and power limit (nvidia-smi) and the device count;
    no CUDA device -> exit 1 with a message that says so;
-1. build: one nvcc call per source (``csrc/linear_attention.cu`` and
-   ``csrc/flash_attention.cu``), started together; their wall seconds and the
+1. build: one nvcc call per source (``csrc/linear_attention.cu``,
+   ``csrc/flash_attention.cu``, ``csrc/tap_conv.cu`` and
+   ``csrc/gemm_probes.cu``), started together; each one's seconds and the
    ``-Xptxas -v`` register / shared-memory / spill summary of every template;
 2. kernel check, each kernel against its plain PyTorch version on the card,
    each case held to a tolerance scaled to its own values:
@@ -27,9 +28,29 @@ Phases, each printed on one flushed line with the seconds since start:
 3. kernel times: each kernel, its plain version and (K3) one PyTorch call of
    the same function (``scaled_dot_product_attention``) at the main paths'
    shapes (CUDA events around 20 back-to-back launches after a warm-up,
-   median of 5 such rounds) beside the card's bound;
+   median of 5 such rounds; 2 launches and 3 rounds for a plain version)
+   beside the card's bound;
 4. backwards: the flash, folded and v1 backwards in bf16 against autograd of
    the f32 plain versions at 16³ b1 (flash, folded) and 32³ b1 (v1);
+4a. wide heads, the fourth slice's repair: K1 and K2 (h = 16 at d = 136, h = 1
+   at 256 and 512), K4a and K4b (4 heads) at b2 x 32³ and K3 (4 heads) at b2 x
+   16³, at d in {136, 256, 512}, bf16 and f32, against their plain versions;
+   then the path: ``LinearAttention`` (folded, then ``fused=True,
+   fused_folded=False``) at 32³ b2 and ``Attention`` at 16³ b2 with those
+   widths, bf16, each launching its kernels once, the v1 block within 1e-2 of
+   the folded one;
+4b. the tap-folded conv, the fourth slice's main path: K5a against its plain
+   version and against ``F.conv3d`` in f32 (TF32 off) at the six cases of
+   ``tools/bench_tap_conv.py``; the path, ``tap_conv3d`` forward and backward
+   at [8, 64³, 48 -> 48] bf16 (K5a 2, K5b 1), with dx, dw and db against the
+   plain backward and autograd of the f32 ``F.conv3d``; K5b against its plain
+   version; K5a and K5b times beside ``F.conv3d`` and
+   ``torch.nn.grad.conv3d_weight``; then the tool's six cases;
+4c. the GEMM probes: P1, both layouts, at its four shapes (M = 524,288)
+   against its plain version, and P2 at its ten cases at R = 40 against its
+   plain version; their times (P1 beside ``torch.matmul``, P2 at (2048, 1296,
+   48, 16) with R = 256); then the tools ``bench_gemm`` and
+   ``bench_mma_shapes`` in full;
 5. sampling, the first slice's main path: the ``unconditional_64`` UNet at
    full width, seeded random weights, bf16 compute, through
    ``sample_unconditional`` at 64³ x batch 2, RK4 with 3 frames and 1 substep
@@ -60,8 +81,8 @@ Phases, each printed on one flushed line with the seconds since start:
    of one micro-step. After the flagship's steps, which leave the model in
    training mode, two samplers from the same x0 must agree exactly.
 
-The launch counts are set to 0 just before each main-path run (phases 5, 7
-and 8) and read just after it. Then one JSON line per kernel (``{"kernels":
+The launch counts are set to 0 just before each main-path run (phases 4a-4c,
+5, 7 and 8) and read just after it. Then one JSON line per kernel (``{"kernels":
 [...]}``), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
 """
@@ -87,12 +108,17 @@ from flowtrain_stochastic_interpolation_torch.inference import (
     make_sampler,
     sample_unconditional,
 )
-from flowtrain_stochastic_interpolation_torch.models.attention import LinearAttention
+from flowtrain_stochastic_interpolation_torch.models.attention import Attention, LinearAttention
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build
 from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
+from flowtrain_stochastic_interpolation_torch.ops import gemm_probes as gp
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
+from flowtrain_stochastic_interpolation_torch.ops import tap_conv as tc
 from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
+from flowtrain_stochastic_interpolation_torch.tools import bench_gemm as bg
+from flowtrain_stochastic_interpolation_torch.tools import bench_mma_shapes as bms
+from flowtrain_stochastic_interpolation_torch.tools import bench_tap_conv as btc
 from flowtrain_stochastic_interpolation_torch.train.loop import init_train_state
 from flowtrain_stochastic_interpolation_torch.train.steps import make_train_step
 
@@ -120,6 +146,14 @@ WIDE_FOLDED = ((8, 32, torch.bfloat16), (4, 64, torch.bfloat16), (2, 64, torch.b
                (4, 32, torch.float32))
 WIDE_FLASH = ((8, torch.bfloat16), (16, torch.bfloat16), (48, torch.bfloat16),
               (128, torch.bfloat16), (32, torch.float32))
+# heads wider than 128 (the fourth slice's repair): d -> heads of the folded path
+# (the fewest whose h·d is a multiple of 128)
+WIDE_HEADS = {136: 16, 256: 1, 512: 1}
+# the tap-folded conv's path: the flagship's train shape, bf16
+CONV_SHAPE = (8, 64, 48, 48)
+# P2's checks against its plain version run this many products per grid step
+# (every window of the 32, 8 of them twice); its times run the tool's R = 256
+PROBE_CHECK_REPS = 40
 # kernel vs plain version, scaled to each case's values (they shrink as
 # 1/sqrt(N) with the tokens): the same bf16 roundings, but K1 rounds exp(k - m)
 # with each chunk's max where the plain version uses the global max, sums run
@@ -138,6 +172,14 @@ TOL = {
     "flash_attention": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
     "linear_context": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
     "linear_project": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
+    # K5a, P1 and P2 against their plain versions: both sides sum exact products
+    # of bf16 values in f32, in another order, then round once to bf16
+    "tap_conv_forward": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
+    "gemm_probe": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
+    "gemm_probe_t": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
+    "mma_probe": dict(atol_frac=1e-3, rtol=2.0**-7, rel_l2=4e-3),
+    # K5b: f32 dw on both sides, sums over 2^21 voxels in another order
+    "tap_conv_weight_grad": dict(atol_frac=1e-4, rtol=1e-4, rel_l2=1e-4),
 }
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 # the memory-heavy case: mem_k shifted up so that the 4 memory tokens outweigh
@@ -151,6 +193,9 @@ FORWARD_REL_TOL = 3e-2
 F32_FORWARD_REL_TOL = 1e-2
 # a bf16 gradient through the kernels against autograd of the f32 plain version
 BACKWARD_REL_TOL = 2e-2
+# K5a (bf16 in and out) against F.conv3d in f32 on the same bf16 values: the
+# output's bf16 rounding, 2^-9 relative at most per element
+CONV_REF_REL_TOL = 1e-2
 # the v1 module against the same weights through the folded kernels (which round
 # p and v to bf16; about 1% of RMS): outputs and input gradients, relative L2
 V1_FOLDED_REL_TOL, V1_FOLDED_GRAD_REL_TOL = 1e-2, 2e-2
@@ -161,6 +206,11 @@ SOURCES = {
     "flash_attention": "flowtrain_stochastic_interpolation_torch/csrc/flash_attention.cu",
     "linear_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
     "linear_project": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
+    "tap_conv_forward": "flowtrain_stochastic_interpolation_torch/csrc/tap_conv.cu",
+    "tap_conv_weight_grad": "flowtrain_stochastic_interpolation_torch/csrc/tap_conv.cu",
+    "gemm_probe": "flowtrain_stochastic_interpolation_torch/csrc/gemm_probes.cu",
+    "gemm_probe_t": "flowtrain_stochastic_interpolation_torch/csrc/gemm_probes.cu",
+    "mma_probe": "flowtrain_stochastic_interpolation_torch/csrc/gemm_probes.cu",
 }
 REPLACES = {
     "folded_context": "flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py:218",
@@ -168,6 +218,11 @@ REPLACES = {
     "flash_attention": "flowtrain_stochastic_interpolation_tpu/ops/flash_attention.py:33",
     "linear_context": "flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py:36",
     "linear_project": "flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py:75",
+    "tap_conv_forward": "flowtrain_stochastic_interpolation_tpu/ops/tap_conv.py:76",
+    "tap_conv_weight_grad": "flowtrain_stochastic_interpolation_tpu/ops/tap_conv.py:152",
+    "gemm_probe": "tools/bench_pallas_gemm.py:53",
+    "gemm_probe_t": "tools/bench_pallas_gemm.py:75",
+    "mma_probe": "tools/bench_mxu_shapes.py:67",
 }
 KERNELS = tuple(REPLACES)
 
@@ -197,13 +252,16 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+COUNTED = (la, fa, tc, gp)  # the modules whose wrappers count their launches
+
+
 def reset_counts() -> None:
-    la.reset_launch_counts()
-    fa.reset_launch_counts()
+    for module in COUNTED:
+        module.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    return {**la.launch_counts, **fa.launch_counts}
+    return {name: n for module in COUNTED for name, n in module.launch_counts.items()}
 
 
 @contextlib.contextmanager
@@ -271,14 +329,14 @@ def make_attention_inputs(batch: int, n: int, m: int, seed: int, q_scale: float 
 
 
 def make_v1_inputs(batch: int, n: int, seed: int, k_scale: float = 1.0, mem_shift: float = 0.0,
-                   dtype: torch.dtype = torch.bfloat16):
+                   dtype: torch.dtype = torch.bfloat16, d: int = HEAD_DIM):
     """As ``LinearAttention``'s v1 path hands them over: q a column slice of a
     [B, N, 3, h, d] projection, and k, v [B, 4 + N, h, d] with the 4 memory
     tokens first (k's shifted up by ``mem_shift``, the keys scaled by ``k_scale``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn(batch, n, 3, HEADS, HEAD_DIM, generator=gen, device="cuda")
+    qkv = torch.randn(batch, n, 3, HEADS, d, generator=gen, device="cuda")
     qkv[:, :, 1] *= k_scale
-    mem = torch.randn(2, N_MEM, HEADS, HEAD_DIM, generator=gen, device="cuda")
+    mem = torch.randn(2, N_MEM, HEADS, d, generator=gen, device="cuda")
     mem[0] += mem_shift
     qkv, mem = qkv.to(dtype), mem.to(dtype)
     cat = lambda i: torch.cat([mem[i].expand(batch, -1, -1, -1), qkv[:, :, i + 1]], dim=1)
@@ -317,6 +375,16 @@ def compare(name: str, label: str, got: torch.Tensor, want: torch.Tensor,
     return max_abs
 
 
+def check_lse(label: str, lse: torch.Tensor, want: torch.Tensor) -> None:
+    """K3's lse (f32) within LSE_TOL of its plain version's."""
+    err = (lse - want).abs()
+    n_bad = int((err > LSE_TOL["atol"] + LSE_TOL["rtol"] * want.abs()).sum().item())
+    say("kernel check", f"flash_attention {label}: lse max abs err {err.max().item():.3e}; "
+        f"{n_bad} outside {LSE_TOL['atol']:g} + {LSE_TOL['rtol']:g}·|plain|")
+    check(bool(torch.isfinite(lse).all()) and n_bad == 0,
+          f"flash_attention {label}: lse outside the tolerance")
+
+
 def phase_kernel_check():
     cases = [(f"b{BATCH} x {n}", BATCH, n, {}) for n in STAGE_TOKENS]
     cases += [(f"b{BATCH} x 4096+37 ragged", BATCH, 4096 + 37, {}),
@@ -347,13 +415,7 @@ def phase_kernel_check():
         torch.cuda.synchronize()
         worst["flash_attention"] = max(worst["flash_attention"],
                                        compare("flash_attention", label, out, want_out))
-        lse_err = (lse - want_lse).abs()
-        n_bad = int((lse_err > LSE_TOL["atol"] + LSE_TOL["rtol"] * want_lse.abs()).sum().item())
-        say("kernel check", f"flash_attention {label}: lse max abs err "
-            f"{lse_err.max().item():.3e}; {n_bad} outside {LSE_TOL['atol']:g} + "
-            f"{LSE_TOL['rtol']:g}·|plain|")
-        check(bool(torch.isfinite(lse).all()) and n_bad == 0,
-              f"flash_attention {label}: lse outside the tolerance")
+        check_lse(label, lse, want_lse)
         del q, k, v, out, lse, want_out, want_lse
 
     # the widened K1/K2 (their general path) and K3, each at its own tolerance
@@ -381,10 +443,7 @@ def phase_kernel_check():
         check(out.dtype == dtype, f"flash_attention {label}: output {out.dtype}")
         worst["flash_attention"] = max(worst["flash_attention"],
                                        compare("flash_attention", label, out, want_out))
-        lse_err = (lse - want_lse).abs()
-        n_bad = int((lse_err > LSE_TOL["atol"] + LSE_TOL["rtol"] * want_lse.abs()).sum().item())
-        check(bool(torch.isfinite(lse).all()) and n_bad == 0,
-              f"flash_attention {label}: lse outside the tolerance")
+        check_lse(label, lse, want_lse)
         del q, k, v, out, lse, want_out, want_lse
 
     # K4a and K4b, this slice's kernels
@@ -436,49 +495,51 @@ def bound(bytes_moved: float, flops: float, peak_flop_per_s: float = PEAK_BF16_F
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def timed_row(name: str, label: str, kernel, plain, nbytes: float, flops: float,
+              peak_flop_per_s: float = PEAK_BF16_FLOP_PER_S, library=None,
+              library_name: str = "") -> dict:
+    """Time a kernel, its plain version and (where there is one) a library call
+    on the same inputs, print the row beside the bound, and return it."""
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain, reps=2, rounds=3, warmup=1)
+    library_ms = None if library is None else time_ms(library)
+    bound_ms, bound_by = bound(nbytes, flops, peak_flop_per_s)
+    lib = "null" if library is None else f"({library_name}) {library_ms:.4f} ms"
+    say("kernel times", f"{name} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), library {lib}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def phase_kernel_times():
     rows = {}
     for n in STAGE_TOKENS:
         q, k, v, mk, mv = make_inputs(BATCH, n, seed=100)
         ctx = la.folded_context_plain(k, v, mk, mv, HEADS)
         products = 2.0 * BATCH * n * WIDTH * (WIDTH // HEADS)
-        work = {
-            "folded_context": (
-                lambda: la.folded_context(k, v, mk, mv, HEADS),
-                lambda: la.folded_context_plain(k, v, mk, mv, HEADS),
-                2 * BATCH * n * WIDTH * 2 + 2 * N_MEM * WIDTH * 2 + BATCH * WIDTH * WIDTH * 4,
-            ),
-            "folded_project": (
-                lambda: la.folded_project(q, ctx, HEADS),
-                lambda: la.folded_project_plain(q, ctx, HEADS),
-                BATCH * n * WIDTH * 2 + BATCH * WIDTH * WIDTH * 4 + BATCH * n * WIDTH * 2,
-            ),
-        }
-        for name, (kernel, plain, nbytes) in work.items():
-            ms = time_ms(kernel)
-            plain_ms = time_ms(plain)
-            bound_ms, bound_by = bound(nbytes, products)
-            rows[(name, BATCH, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                          bound_by=bound_by, library_ms=None)
-            say("kernel times", f"{name} b{BATCH} x {n}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}), library null")
+        label = f"b{BATCH} x {n}"
+        rows[("folded_context", BATCH, n)] = timed_row(
+            "folded_context", label, lambda: la.folded_context(k, v, mk, mv, HEADS),
+            lambda: la.folded_context_plain(k, v, mk, mv, HEADS),
+            2 * BATCH * n * WIDTH * 2 + 2 * N_MEM * WIDTH * 2 + BATCH * WIDTH * WIDTH * 4,
+            products)
+        rows[("folded_project", BATCH, n)] = timed_row(
+            "folded_project", label, lambda: la.folded_project(q, ctx, HEADS),
+            lambda: la.folded_project_plain(q, ctx, HEADS),
+            BATCH * n * WIDTH * 2 + BATCH * WIDTH * WIDTH * 4 + BATCH * n * WIDTH * 2, products)
         del q, k, v, ctx
 
     n, m = FLASH_TOKENS
     for b in (BATCH, TRAIN_MICRO_BATCH):
         q, k, v = make_attention_inputs(b, n, m, seed=200)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's [B, h, tokens, d]
-        nbytes = 2 * (2 * b * n + 2 * b * m) * WIDTH + 4 * b * HEADS * n
-        flops = 4.0 * b * HEADS * n * m * HEAD_DIM
-        ms = time_ms(lambda: fa.flash_attention_forward(q, k, v))
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        bound_ms, bound_by = bound(nbytes, flops)
-        rows[("flash_attention", b, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                               bound_by=bound_by, library_ms=library_ms)
-        say("kernel times", f"flash_attention b{b} x {n} q x {m} kv x {HEADS} x {HEAD_DIM}: "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"library (scaled_dot_product_attention) {library_ms:.4f} ms")
+        rows[("flash_attention", b, n)] = timed_row(
+            "flash_attention", f"b{b} x {n} q x {m} kv x {HEADS} x {HEAD_DIM}",
+            lambda: fa.flash_attention_forward(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+            2 * (2 * b * n + 2 * b * m) * WIDTH + 4 * b * HEADS * n,
+            4.0 * b * HEADS * n * m * HEAD_DIM,
+            library=lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            library_name="scaled_dot_product_attention")
         del q, k, v, qt, kt, vt
 
     # K4a and K4b: bf16 q, k, v in and out, f32 ctx, f32 products on the FP32 cores
@@ -487,24 +548,15 @@ def phase_kernel_times():
         q, k, v = make_v1_inputs(BATCH, n, seed=110)
         ctx = la.linear_context_plain(k, v)
         ctx_bytes = BATCH * HEADS * HEAD_DIM * HEAD_DIM * 4
-        work = {
-            "linear_context": (
-                lambda: la.linear_context(k, v), lambda: la.linear_context_plain(k, v),
-                2 * BATCH * m * WIDTH * 2 + ctx_bytes, 2.0 * BATCH * m * WIDTH * HEAD_DIM,
-            ),
-            "linear_project": (
-                lambda: la.linear_project(q, ctx), lambda: la.linear_project_plain(q, ctx),
-                2 * BATCH * n * WIDTH * 2 + ctx_bytes, 2.0 * BATCH * n * WIDTH * HEAD_DIM,
-            ),
-        }
-        for name, (kernel, plain, nbytes, products) in work.items():
-            ms = time_ms(kernel)
-            plain_ms = time_ms(plain, reps=5)
-            bound_ms, bound_by = bound(nbytes, products, PEAK_F32_FLOP_PER_S)
-            rows[(name, BATCH, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                          bound_by=bound_by, library_ms=None)
-            say("kernel times", f"{name} b{BATCH} x {n} x {HEADS} x {HEAD_DIM}: {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library null")
+        label = f"b{BATCH} x {n} x {HEADS} x {HEAD_DIM}"
+        rows[("linear_context", BATCH, n)] = timed_row(
+            "linear_context", label, lambda: la.linear_context(k, v),
+            lambda: la.linear_context_plain(k, v), 2 * BATCH * m * WIDTH * 2 + ctx_bytes,
+            2.0 * BATCH * m * WIDTH * HEAD_DIM, PEAK_F32_FLOP_PER_S)
+        rows[("linear_project", BATCH, n)] = timed_row(
+            "linear_project", label, lambda: la.linear_project(q, ctx),
+            lambda: la.linear_project_plain(q, ctx), 2 * BATCH * n * WIDTH * 2 + ctx_bytes,
+            2.0 * BATCH * n * WIDTH * HEAD_DIM, PEAK_F32_FLOP_PER_S)
         del q, k, v, ctx
     return rows
 
@@ -557,6 +609,309 @@ def phase_backwards():
         f"{HEAD_DIM}, bf16 vs autograd of the f32 plain version: relative L2 dq {errs[0]:.3e}, "
         f"dk {errs[1]:.3e}, dv {errs[2]:.3e} (limit {BACKWARD_REL_TOL:g})")
     check(max(errs) <= BACKWARD_REL_TOL, f"v1 backward relative L2 {max(errs):.3e}")
+
+
+# ---------------------------------------------------------------------------
+# Heads wider than 128 (the fourth slice's repair of K1-K4b)
+# ---------------------------------------------------------------------------
+def seed_module(module: torch.nn.Module, gen: torch.Generator) -> None:
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+
+
+def phase_wide_heads(worst: dict) -> dict:
+    """K1-K4b at d in WIDE_HEADS, bf16 and f32, against their plain versions,
+    with the bf16 times; then the attention modules at those widths, the
+    repair's path."""
+    n, m = FLASH_TOKENS
+    tokens = STAGE_TOKENS[1]
+    for d, heads in WIDE_HEADS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = dtype == torch.bfloat16
+            tag = f"d = {d} {str(dtype)[6:]}"
+            label = f"b2 x {tokens} x {heads} heads x {tag}"
+            q, k, v, mk, mv = make_inputs(2, tokens, seed=400 + d, heads=heads, d=d, dtype=dtype)
+            ctx_plain = la.folded_context_plain(k, v, mk, mv, heads)
+            ctx = la.folded_context(k, v, mk, mv, heads)
+            out_plain = la.folded_project_plain(q, ctx_plain, heads)
+            out = la.folded_project(q, ctx_plain, heads)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype, f"folded_project {label}: output {out.dtype}")
+            for name, got, want in (("folded_context", ctx, ctx_plain),
+                                    ("folded_project", out, out_plain)):
+                worst[name] = max(worst[name], compare(name, label, got, want, heads))
+            if timed:  # bytes: the [2, N, h·d] operands and the f32 ctx; products per head block
+                hd, ctx_bytes = heads * d, 2 * (heads * d) ** 2 * 4
+                flops = 2.0 * 2 * tokens * hd * d
+                timed_row("folded_context", label, lambda: la.folded_context(k, v, mk, mv, heads),
+                          lambda: la.folded_context_plain(k, v, mk, mv, heads),
+                          2 * 2 * tokens * hd * 2 + ctx_bytes, flops)
+                timed_row("folded_project", label, lambda: la.folded_project(q, ctx_plain, heads),
+                          lambda: la.folded_project_plain(q, ctx_plain, heads),
+                          2 * 2 * tokens * hd * 2 + ctx_bytes, flops)
+            del q, k, v, mk, mv, ctx, ctx_plain, out, out_plain
+
+            label = f"b2 x {STAGE_TOKENS[1]} q x {STAGE_TOKENS[1] + N_MEM} kv x {HEADS} heads x {tag}"
+            q, k, v = make_v1_inputs(2, STAGE_TOKENS[1], seed=410 + d, dtype=dtype, d=d)
+            ctx_plain = la.linear_context_plain(k, v)
+            ctx = la.linear_context(k, v)
+            out_plain = la.linear_project_plain(q, ctx_plain)
+            out = la.linear_project(q, ctx_plain)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype and out.shape == q.shape,
+                  f"linear_project {label}: output {out.dtype} {tuple(out.shape)}")
+            for name, got, want in (("linear_context", ctx, ctx_plain),
+                                    ("linear_project", out, out_plain)):
+                worst[name] = max(worst[name], compare(name, label, got, want))
+            if timed:  # f32 products on the FP32 cores
+                ctx_bytes = 2 * HEADS * d * d * 4
+                timed_row("linear_context", label, lambda: la.linear_context(k, v),
+                          lambda: la.linear_context_plain(k, v),
+                          2 * 2 * (tokens + N_MEM) * HEADS * d * 2 + ctx_bytes,
+                          2.0 * 2 * (tokens + N_MEM) * HEADS * d * d, PEAK_F32_FLOP_PER_S)
+                timed_row("linear_project", label, lambda: la.linear_project(q, ctx_plain),
+                          lambda: la.linear_project_plain(q, ctx_plain),
+                          2 * 2 * tokens * HEADS * d * 2 + ctx_bytes,
+                          2.0 * 2 * tokens * HEADS * d * d, PEAK_F32_FLOP_PER_S)
+            del q, k, v, ctx, ctx_plain, out, out_plain
+
+            label = f"b2 x {n} q x {m} kv x {HEADS} heads x {tag}"
+            q, k, v = make_attention_inputs(2, n, m, seed=420 + d, d=d, dtype=dtype)
+            out, lse = fa.flash_attention_forward(q, k, v)
+            want_out, want_lse = fa.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype, f"flash_attention {label}: output {out.dtype}")
+            worst["flash_attention"] = max(worst["flash_attention"],
+                                           compare("flash_attention", label, out, want_out))
+            check_lse(label, lse, want_lse)
+            if timed:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # SDPA's [B, h, tokens, d]
+                timed_row("flash_attention", label, lambda: fa.flash_attention_forward(q, k, v),
+                          lambda: fa.flash_attention_plain(q, k, v),
+                          2 * (2 * 2 * n + 2 * 2 * m) * HEADS * d + 4 * 2 * HEADS * n,
+                          4.0 * 2 * HEADS * n * m * d,
+                          library=lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                          library_name="scaled_dot_product_attention")
+                del qt, kt, vt
+            del q, k, v, out, lse, want_out, want_lse
+    torch.cuda.empty_cache()
+
+    # the path: the attention modules at these widths, bf16
+    gen = torch.Generator(device="cuda").manual_seed(430)
+    bf16 = dict(dtype=torch.bfloat16, device="cuda")
+    modules = []
+    for d, heads in WIDE_HEADS.items():
+        folded = LinearAttention(V1_DIM, heads, d, **bf16)
+        seed_module(folded, gen)
+        v1 = LinearAttention(V1_DIM, heads, d, fused=True, fused_folded=False, **bf16)
+        v1.load_state_dict(folded.state_dict())
+        full = Attention(V1_DIM, heads, d, **bf16)
+        seed_module(full, gen)
+        modules.append((d, heads, folded, v1, full))
+    x32 = torch.randn(2, 32, 32, 32, V1_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+    x16 = torch.randn(2, 16, 16, 16, V1_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    with torch.inference_mode():
+        outs = [(d, heads, folded(x32), v1(x32), full(x16)) for d, heads, folded, v1, full in modules]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = read_counts()
+    for d, heads, a, b, c in outs:
+        check(all(bool(torch.isfinite(t).all()) for t in (a, b, c)), f"wide heads d = {d}: non-finite")
+        rel = rel_l2(b, a)
+        say("wide heads", f"LinearAttention({V1_DIM}, {heads} x {d}) 32³ b2: v1 (K4a + K4b) against "
+            f"folded (K1 + K2) relative L2 {rel:.3e} (limit {V1_FOLDED_REL_TOL:g}); "
+            f"Attention({V1_DIM}, {heads} x {d}) 16³ b2 (K3) finite")
+        check(rel <= V1_FOLDED_REL_TOL, f"wide heads d = {d}: v1 against folded {rel:.3e}")
+    want = {name: len(WIDE_HEADS) if name in ("folded_context", "folded_project", "linear_context",
+                                              "linear_project", "flash_attention") else 0
+            for name in KERNELS}
+    say("wide heads", f"the modules at d = {', '.join(map(str, WIDE_HEADS))}: {seconds:.2f} s "
+        f"(first calls), launches {counts}")
+    check(counts == want, f"wide heads: launches {counts}, expected {want}")
+    del modules, outs
+    torch.cuda.empty_cache()
+    return {"wide heads": counts}
+
+
+# ---------------------------------------------------------------------------
+# The tap-folded conv (the fourth slice's main path)
+# ---------------------------------------------------------------------------
+def conv_f32(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """F.conv3d in f32 on the same values (TF32 off), channels-last in and out."""
+    y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), w.float().permute(4, 3, 0, 1, 2),
+                 None if b is None else b.float(), padding=1)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def conv_cotangent(batch: int, side: int, cout: int, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(batch, side, side, side, cout, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def phase_tap_conv(worst: dict):
+    """K5a and K5b against their plain versions and F.conv3d, the custom VJP at
+    the flagship's train shape (the path), their times, and the tool."""
+    for batch, side, cin, cout, _ in btc.CASES:
+        label = f"b{batch} {side}³ {cin} -> {cout} bf16"
+        x, w, b = btc.operands(batch, side, cin, cout, "cuda")
+        out = tc.tap_conv_forward(x, w, b)
+        want = tc.tap_conv_forward_plain(x, w, b)
+        ref = conv_f32(x, w, b)
+        torch.cuda.synchronize()
+        check(out.dtype == x.dtype and out.shape == ref.shape,
+              f"tap_conv_forward {label}: output {out.dtype} {tuple(out.shape)}")
+        worst["tap_conv_forward"] = max(worst["tap_conv_forward"],
+                                        compare("tap_conv_forward", label, out, want))
+        rel = rel_l2(out, ref)
+        say("tap conv", f"tap_conv_forward {label} against F.conv3d in f32: relative L2 "
+            f"{rel:.3e} (limit {CONV_REF_REL_TOL:g})")
+        check(rel <= CONV_REF_REL_TOL, f"tap_conv_forward {label}: {rel:.3e} from F.conv3d")
+        del x, w, b, out, want, ref
+
+    batch, side, cin, cout = CONV_SHAPE
+    for cin_x in (cin, 18):  # the flagship's width, and a ragged K = 27·18
+        label = f"b{batch} {side}³ {cin_x} -> {cout} bf16"
+        x, _, _ = btc.operands(batch, side, cin_x, cout, "cuda")
+        g = conv_cotangent(batch, side, cout, seed=500 + cin_x)
+        dw = tc.tap_conv_weight_grad(x, g)
+        again = tc.tap_conv_weight_grad(x, g)
+        want = tc.tap_conv_weight_grad_plain(x, g)
+        torch.cuda.synchronize()
+        worst["tap_conv_weight_grad"] = max(worst["tap_conv_weight_grad"],
+                                            compare("tap_conv_weight_grad", label, dw, want))
+        check(torch.equal(dw, again), f"tap_conv_weight_grad {label}: differs from run to run")
+        del x, g, dw, again, want
+
+    # the path: tap_conv3d forward and backward at the flagship's train shape
+    x, w, b = btc.operands(batch, side, cin, cout, "cuda")
+    g = conv_cotangent(batch, side, cout, seed=510)
+    ours = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    tc.tap_conv3d(*ours).backward(g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = read_counts()
+    want = {name: {"tap_conv_forward": 2, "tap_conv_weight_grad": 1}.get(name, 0)
+            for name in KERNELS}
+    say("tap conv", f"tap_conv3d forward + backward b{batch} {side}³ {cin} -> {cout} bf16: "
+        f"{seconds * 1e3:.1f} ms (first call), launches {counts}")
+    check(counts == want, f"tap conv: launches {counts}, expected {want}")
+    w_flip = torch.flip(w, (0, 1, 2)).transpose(3, 4)
+    plain = (tc.tap_conv_forward_plain(g, w_flip),
+             tc.tap_conv_weight_grad_plain(x, g).to(torch.bfloat16),
+             g.sum(dim=(0, 1, 2, 3), dtype=torch.float32).to(torch.bfloat16).float())
+    ref = [t.detach().float().requires_grad_() for t in (x, w, b)]
+    conv_f32(*ref).backward(g.float())
+    for name, got, want_plain, r in zip(("dx", "dw", "db"), ours, plain, ref):
+        check(got.grad.dtype == got.dtype, f"tap conv {name}: {got.grad.dtype}")
+        compare("tap_conv_forward", f"VJP {name} against the plain backward", got.grad, want_plain)
+        rel = rel_l2(got.grad, r.grad)
+        say("tap conv", f"VJP {name} against autograd of the f32 F.conv3d: relative L2 {rel:.3e} "
+            f"(limit {BACKWARD_REL_TOL:g})")
+        check(rel <= BACKWARD_REL_TOL, f"tap conv VJP {name}: {rel:.3e} from autograd")
+    del ours, plain, ref
+
+    # times at the flagship's train shape, beside cuDNN
+    fmt = torch.channels_last_3d
+    xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+    wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=fmt)
+    bc = b.to(torch.bfloat16)
+    voxels = batch * side**3
+    flops = 2.0 * voxels * 27 * cin * cout
+    label = f"b{batch} {side}³ {cin} -> {cout} bf16"
+    rows = {
+        "tap_conv_forward": timed_row(
+            "tap_conv_forward", label, lambda: tc.tap_conv_forward(x, w, b),
+            lambda: tc.tap_conv_forward_plain(x, w, b),
+            2 * voxels * (cin + cout) + 2 * 27 * cin * cout + 4 * cout, flops,
+            library=lambda: F.conv3d(xc, wc, bc, padding=1),
+            library_name="F.conv3d, cuDNN, channels_last_3d"),
+        "tap_conv_weight_grad": timed_row(
+            "tap_conv_weight_grad", label, lambda: tc.tap_conv_weight_grad(x, g),
+            lambda: tc.tap_conv_weight_grad_plain(x, g),
+            2 * voxels * (cin + cout) + 4 * 27 * cin * cout, flops,
+            library=lambda: torch.nn.grad.conv3d_weight(xc, wc.shape, gc, padding=1),
+            library_name="conv3d_weight, cuDNN, channels_last_3d"),
+    }
+    del x, w, b, g, xc, gc, wc, bc
+    torch.cuda.empty_cache()
+
+    # the tool, in full
+    reset_counts()
+    for batch, side, cin, cout, grad in btc.CASES:
+        btc.check_and_bench(batch, side, cin, cout, grad=grad, device="cuda")
+    launches = {"tap conv": counts, "bench_tap_conv": read_counts()}
+    say("tap conv", f"bench_tap_conv launches {launches['bench_tap_conv']}")
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# The GEMM probes P1 and P2
+# ---------------------------------------------------------------------------
+def phase_gemm_probes(worst: dict):
+    """P1 (both layouts) at its four shapes and P2 at its ten cases against
+    their plain versions, their times, and the two tools (the path)."""
+    rows = {}
+    for k, n in bg.SHAPES:
+        label = f"[{bg.M} x {k}] @ [{k} x {n}]"
+        a, b, bt = bg.operands(bg.M, k, n, "cuda")
+        out, out_t = gp.gemm_probe(a, b), gp.gemm_probe_t(a, bt)
+        want, want_t = gp.gemm_probe_plain(a, b), gp.gemm_probe_t_plain(a, bt)
+        torch.cuda.synchronize()
+        check(out.shape == (bg.M, n) and out_t.shape == (n, bg.M), f"gemm_probe {label}: shapes")
+        for name, got, ref in (("gemm_probe", out, want), ("gemm_probe_t", out_t, want_t)):
+            worst[name] = max(worst[name], compare(name, label, got, ref))
+        del out, out_t, want, want_t
+        if (k, n) == bg.SHAPES[0]:  # the conv's shape: times beside torch.matmul
+            nbytes, flops = 2 * (bg.M * k + k * n + bg.M * n), 2.0 * bg.M * k * n
+            library = dict(library=lambda: torch.matmul(a, b), library_name="torch.matmul")
+            rows["gemm_probe"] = timed_row(
+                "gemm_probe", label, lambda: gp.gemm_probe(a, b),
+                lambda: gp.gemm_probe_plain(a, b), nbytes, flops, **library)
+            rows["gemm_probe_t"] = timed_row(
+                "gemm_probe_t", label, lambda: gp.gemm_probe_t(a, bt),
+                lambda: gp.gemm_probe_t_plain(a, bt), nbytes, flops, **library)
+        del a, b, bt
+
+    for m_block, k, n, grid in bms.CASES:
+        label = f"({m_block}, {k}, {n}, {grid}) R = {PROBE_CHECK_REPS}"
+        a, b = bms.operands(m_block, k, n, grid, "cuda")
+        out = gp.mma_probe(a, b, PROBE_CHECK_REPS)
+        want = gp.mma_probe_plain(a, b, PROBE_CHECK_REPS)
+        torch.cuda.synchronize()
+        check(out.shape == (m_block, n), f"mma_probe {label}: shape {tuple(out.shape)}")
+        worst["mma_probe"] = max(worst["mma_probe"], compare("mma_probe", label, out, want))
+        if (m_block, k, n, grid) == (2048, 1296, 48, 16):  # all 27 taps folded: times at R
+            rows["mma_probe"] = timed_row(
+                "mma_probe", f"({m_block}, {k}, {n}, {grid}) R = {bms.R}",
+                lambda: gp.mma_probe(a, b, bms.R), lambda: gp.mma_probe_plain(a, b, bms.R),
+                2 * (a.numel() + b.numel() + m_block * n), 2.0 * m_block * grid * k * n * bms.R)
+        del a, b, out, want
+    torch.cuda.empty_cache()
+
+    # the tools, in full
+    launches = {}
+    reset_counts()
+    for k, n in bg.SHAPES:
+        bg.bench_shape(k, n, device="cuda")
+    launches["bench_gemm"] = read_counts()
+    torch.cuda.empty_cache()
+    reset_counts()
+    for case in bms.CASES:
+        tflops, ms = bms.probe(*case, device="cuda")
+        say("gemm probes", f"bench_mma_shapes {case}: {tflops:.1f} TF/s, {ms:.3f} ms at R = {bms.R}")
+    launches["bench_mma_shapes"] = read_counts()
+    say("gemm probes", f"launches {launches}")
+    torch.cuda.empty_cache()
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -720,9 +1075,7 @@ def phase_v1(widths) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     v1 = LinearAttention(dim, heads, dim_head, fused=True, fused_folded=False,
                          dtype=torch.bfloat16, device="cuda")
-    for m in v1.modules():
-        if hasattr(m, "reset_parameters"):
-            m.reset_parameters(gen)
+    seed_module(v1, gen)
     folded = LinearAttention(dim, heads, dim_head, dtype=torch.bfloat16, device="cuda")
     folded.load_state_dict(v1.state_dict())
     launches = {}
@@ -888,7 +1241,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    builds = cuda_build.load_all([la.SOURCE, fa.SOURCE])
+    builds = cuda_build.load_all([la.SOURCE, fa.SOURCE, tc.SOURCE, gp.SOURCE])
     for name, build in builds.items():
         say("build", f"nvcc {build.seconds:.1f} s -> {build.path.name}")
         for line in build.log.splitlines():
@@ -897,8 +1250,16 @@ def main() -> int:
 
     worst = phase_kernel_check()
     rows = phase_kernel_times()
+    headline = {name: rows[(name, BATCH, FLASH_TOKENS[0] if name == "flash_attention"
+                            else STAGE_TOKENS[0])] for name in (*la.launch_counts, *fa.launch_counts)}
     phase_backwards()
-    model, launches = phase_sampling()
+    launches = phase_wide_heads(worst)
+    for phase in (phase_tap_conv, phase_gemm_probes):
+        phase_rows, phase_launches = phase(worst)
+        headline.update(phase_rows)
+        launches.update(phase_launches)
+    model, sampling_launches = phase_sampling()
+    launches.update(sampling_launches)
     phase_forward(model)
     widths = linear_attention_widths(model)
     del model
@@ -913,7 +1274,7 @@ def main() -> int:
 
     kernels = []
     for name in KERNELS:
-        row = rows[(name, BATCH, FLASH_TOKENS[0] if name == "flash_attention" else STAGE_TOKENS[0])]
+        row = headline[name]
         by_path = {path: counts[name] for path, counts in launches.items()}
         check(sum(by_path.values()) > 0, f"{name} was never launched on the main path")
         kernels.append({

@@ -339,8 +339,8 @@ folded_project(const __nv_bfloat16* __restrict__ q, long long q_ld, long long q_
 
 // ===========================================================================
 // The general path: one (batch, head) pair per block row of the grid, any
-// number of heads, any head width d with d % 8 == 0 up to 128, bf16 or f32
-// operands, each read in place through its batch, token and head strides.
+// number of heads, any head width d with d % 8 == 0, bf16 or f32 operands,
+// each read in place through its batch, token and head strides.
 //
 // It serves two pairs of TPU kernels:
 //   * K1 and K2 beyond the 4 x 32 bf16 specialisation above (folded layout
@@ -360,7 +360,12 @@ folded_project(const __nv_bfloat16* __restrict__ q, long long q_ld, long long q_
 //
 // The head width is a template bucket (32, 64 or 128) with the actual d
 // masked at run time: columns at or past d are loaded as k = -inf, v = 0 and
-// q = -inf, and are never written.
+// q = -inf, and are never written. A head wider than 128 works in column
+// tiles of 128: the context's d x d block is cut into 128 x 128 tiles, one
+// per blockIdx.z, each reusing the 128 bucket with a k-column and a v-column
+// offset (the softmax statistics are per k column, so the tiles are
+// independent; a tile recomputes exp(k - m) for its k columns once per
+// v-column tile); the projection runs project_wide, below.
 //
 // Bound on the H100: at b8 x 64^3 with 4 heads x 32, bf16, the context reads
 // k and v (2 x 537 MB) and the projection reads q and writes out (2 x 537
@@ -436,7 +441,7 @@ __global__ void __launch_bounds__(THREADS)
 context_partial(const T* __restrict__ k, const T* __restrict__ v,
                 long long k_bs, long long k_ts, long long k_hs,
                 long long v_bs, long long v_ts, long long v_hs,
-                int heads, int d, int n, int chunk, int n_chunks, int round_bf16,
+                int heads, int d, int n, int chunk, int n_chunks, int round_bf16, int tiles,
                 float* __restrict__ part_m, float* __restrict__ part_s,
                 float* __restrict__ part_ctx) {
   using S = CtxShape<DB>;
@@ -444,8 +449,13 @@ context_partial(const T* __restrict__ k, const T* __restrict__ v,
   const int b = bh / heads, h = bh % heads;
   const int n0 = c * chunk;
   const int n1 = min(n, n0 + chunk);
-  const T* kb = k + b * k_bs + h * k_hs;
-  const T* vb = v + b * v_bs + h * v_hs;
+  // this block's tile of the d x d block: k columns k_off.., v columns v_off..
+  // (the whole block, tiles == 1, for d <= DB)
+  const int kt = blockIdx.z / tiles, vt = blockIdx.z % tiles;
+  const int k_off = kt * DB, v_off = vt * DB;
+  const int dk = min(DB, d - k_off), dv = min(DB, d - v_off);
+  const T* kb = k + b * k_bs + h * k_hs + k_off;
+  const T* vb = v + b * v_bs + h * v_hs + v_off;
 
   __shared__ __align__(16) float p_s[CTX_TILE][DB];  // k, then exp(k - m)
   __shared__ __align__(16) float v_s[CTX_TILE][DB];
@@ -459,8 +469,8 @@ context_partial(const T* __restrict__ k, const T* __restrict__ v,
   }
   const int g = t / S::LANES, lane = t % S::LANES;
   const int d0 = (lane / (DB / S::TI)) * S::TI, e0 = (lane % (DB / S::TI)) * S::TI;
-  // d % 8 == 0, so a thread's rows (and columns) are all inside d or all past it
-  const bool owns = d0 < d && e0 < d;
+  // d % 8 == 0, so a thread's rows (and columns) are all inside the tile or all past it
+  const bool owns = d0 < dk && e0 < dv;
   float acc[S::TI][S::TI];
 #pragma unroll
   for (int i = 0; i < S::TI; ++i)
@@ -471,24 +481,32 @@ context_partial(const T* __restrict__ k, const T* __restrict__ v,
   for (int base = n0; base < n1; base += CTX_TILE) {
     const int rows = min(CTX_TILE, n1 - base);
     __syncthreads();  // the previous tile is consumed
-    // rows past the chunk's end and columns past d are never read: k = -inf
-    // (so exp gives 0) and v = 0
+    // rows past the chunk's end and columns past the tile are never read:
+    // k = -inf (so exp gives 0) and v = 0
     for (int i = t; i < CTX_TILE * DB / 8; i += THREADS) {
       const int r = i / (DB / 8), c8 = (i % (DB / 8)) * 8;
       float kf[8], vf[8];
-      if (r < rows && c8 < d) {
+      const bool k_in = r < rows && c8 < dk, v_in = r < rows && c8 < dv;
+      if (k_in && v_in) {  // both loads in one block, issued together
         load8(kb + (long long)(base + r) * k_ts + c8, kf);
         load8(vb + (long long)(base + r) * v_ts + c8, vf);
-        if (round_bf16) {
+      } else {  // masked rows, and a column inside one side's tile only (d > 128)
+        if (k_in) {
+          load8(kb + (long long)(base + r) * k_ts + c8, kf);
+        } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) vf[j] = bf16_round(vf[j]);
+          for (int j = 0; j < 8; ++j) kf[j] = neg_inf();
         }
-      } else {
+        if (v_in) {
+          load8(vb + (long long)(base + r) * v_ts + c8, vf);
+        } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          kf[j] = neg_inf();
-          vf[j] = 0.f;
+          for (int j = 0; j < 8; ++j) vf[j] = 0.f;
         }
+      }
+      if (round_bf16) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) vf[j] = bf16_round(vf[j]);
       }
       float4* pd = reinterpret_cast<float4*>(&p_s[r][c8]);
       float4* vd = reinterpret_cast<float4*>(&v_s[r][c8]);
@@ -504,7 +522,7 @@ context_partial(const T* __restrict__ k, const T* __restrict__ v,
     for (int r = 0; r < S::PART_ROWS; ++r) mx = fmaxf(mx, p_s[part * S::PART_ROWS + r][col]);
     red[part][col] = mx;
     __syncthreads();
-    if (t < d) {
+    if (t < dk) {
       float m_new = m_run[t];
 #pragma unroll
       for (int q = 0; q < S::PARTS; ++q) m_new = fmaxf(m_new, red[q][t]);
@@ -514,7 +532,7 @@ context_partial(const T* __restrict__ k, const T* __restrict__ v,
     __syncthreads();
 
     float s = 0.f;
-    if (col < d) {
+    if (col < dk) {
       const float m_new = m_run[col];
 #pragma unroll
       for (int r = 0; r < S::PART_ROWS; ++r) {
@@ -526,7 +544,7 @@ context_partial(const T* __restrict__ k, const T* __restrict__ v,
     }
     red[part][col] = s;
     __syncthreads();
-    if (t < d) {
+    if (t < dk) {
       float sum = 0.f;
 #pragma unroll
       for (int q = 0; q < S::PARTS; ++q) sum += red[q][t];
@@ -579,12 +597,12 @@ context_partial(const T* __restrict__ k, const T* __restrict__ v,
   }
 
   const long long slot = (long long)bh * n_chunks + c;
-  if (t < d) {
-    part_m[slot * d + t] = m_run[t];
-    part_s[slot * d + t] = s_run[t];
+  if (vt == 0 && t < dk) {  // the statistics of the k columns, once
+    part_m[slot * d + k_off + t] = m_run[t];
+    part_s[slot * d + k_off + t] = s_run[t];
   }
   if (g == 0 && owns) {
-    float* pc = part_ctx + slot * d * d;
+    float* pc = part_ctx + slot * d * d + (long long)k_off * d + v_off;
 #pragma unroll
     for (int i = 0; i < S::TI; ++i)
 #pragma unroll
@@ -743,6 +761,110 @@ project_general(const T* __restrict__ q, long long q_bs, long long q_ts, long lo
   }
 }
 
+// Projection at d > 128: out = softmax_d(q) * scale @ ctx per (row tile,
+// batch*head, 128-wide column tile of out). The block first takes each row's
+// max and sum over the whole head row of q (K2's group max: one head's
+// columns), then walks the d rows of ctx in chunks of WIDE_KC, staging the
+// chunk's [WIDE_KC, 128] slice of ctx (rounded to bf16 for K2) and the
+// matching columns of p in shared memory, 40 KB in all; each thread
+// accumulates 4 rows x 4 columns. ctx is staged anew for every row tile (it
+// stays in L2), and q is read once per column tile plus once for the
+// statistics: simple, and right at every d.
+constexpr int WIDE_ROWS = 32;   // rows of q per tile
+constexpr int WIDE_COLS = 128;  // output columns per block
+constexpr int WIDE_KC = 64;     // rows of ctx per staged chunk
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+project_wide(const T* __restrict__ q, long long q_bs, long long q_ts, long long q_hs,
+             const float* __restrict__ ctx, long long c_bs, long long c_hs, long long c_ld,
+             T* __restrict__ out, int heads, int d, int n, int n_tiles, int round_bf16,
+             float scale) {
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads, t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const int col0 = blockIdx.z * WIDE_COLS;
+
+  __shared__ __align__(16) float ctx_s[WIDE_KC][WIDE_COLS];
+  __shared__ float p_s[WIDE_ROWS][WIDE_KC + 1];
+  __shared__ float m_s[WIDE_ROWS], s_s[WIDE_ROWS];
+
+  const T* qb = q + b * q_bs + h * q_hs;
+  const float* cb = ctx + b * c_bs + h * c_hs;
+  const long long o_ts = (long long)heads * d;
+  T* ob = out + (long long)b * n * o_ts + h * d;
+  const int cg = t % (WIDE_COLS / 4), rg = t / (WIDE_COLS / 4);  // columns cg*4.., rows rg*4..
+  constexpr int ROWS_PER_WARP = WIDE_ROWS / (THREADS / 32);
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * WIDE_ROWS;
+    __syncthreads();  // the previous tile is consumed
+    // the softmax statistics of each row over all d columns: one warp per row
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_WARP; ++i) {
+      const int r = warp * ROWS_PER_WARP + i, row = row0 + r;
+      float mx = 0.f, sum = 1.f;  // a row past n: finite, never written
+      if (row < n) {
+        const T* qr = qb + (long long)row * q_ts;
+        mx = neg_inf();
+        for (int c = lane; c < d; c += 32) mx = fmaxf(mx, to_f32(qr[c]));
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        sum = 0.f;
+        for (int c = lane; c < d; c += 32) sum += expf(to_f32(qr[c]) - mx);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      }
+      if (lane == 0) {
+        m_s[r] = mx;
+        s_s[r] = sum;
+      }
+    }
+
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int dd0 = 0; dd0 < d; dd0 += WIDE_KC) {
+      __syncthreads();  // the statistics are written, or the previous chunk is consumed
+      for (int i = t; i < WIDE_KC * WIDE_COLS; i += THREADS) {
+        const int r = i / WIDE_COLS, e = i % WIDE_COLS;
+        const float x = (dd0 + r < d && col0 + e < d) ? cb[(long long)(dd0 + r) * c_ld + col0 + e] : 0.f;
+        ctx_s[r][e] = round_bf16 ? bf16_round(x) : x;
+      }
+      for (int i = t; i < WIDE_ROWS * WIDE_KC; i += THREADS) {
+        const int r = i / WIDE_KC, c = i % WIDE_KC, row = row0 + r;
+        float p = 0.f;
+        if (row < n && dd0 + c < d) {
+          p = (expf(to_f32(qb[(long long)row * q_ts + dd0 + c]) - m_s[r]) / s_s[r]) * scale;
+          if (round_bf16) p = bf16_round(p);
+        }
+        p_s[r][c] = p;
+      }
+      __syncthreads();
+      const int kc = min(WIDE_KC, d - dd0);
+      for (int c = 0; c < kc; ++c) {
+        const float4 cv = *reinterpret_cast<const float4*>(&ctx_s[c][cg * 4]);
+        const float ca[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = p_s[rg * 4 + i][c];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p, ca[j], acc[i][j]);
+        }
+      }
+    }
+    if (col0 + cg * 4 < d) {  // d % 8 == 0: the 4 columns are all inside d or all past it
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + rg * 4 + i;
+        if (row >= n) break;
+        store4(ob + row * o_ts + col0 + cg * 4, acc[i]);
+      }
+    }
+  }
+}
+
 template <typename T, int DB>
 int launch_context(const void* k, const void* v, long long k_bs, long long k_ts, long long k_hs,
                    long long v_bs, long long v_ts, long long v_hs, const void* mem_k,
@@ -750,9 +872,10 @@ int launch_context(const void* k, const void* v, long long k_bs, long long k_ts,
                    int round_bf16, int width, float* part_m, float* part_s, float* part_ctx,
                    float* ctx, cudaStream_t s) {
   const int n_chunks = (n + chunk - 1) / chunk;
-  context_partial<T, DB><<<dim3(n_chunks, batch * heads), THREADS, 0, s>>>(
+  const int tiles = (d + DB - 1) / DB;  // 1 unless d > 128
+  context_partial<T, DB><<<dim3(n_chunks, batch * heads, tiles * tiles), THREADS, 0, s>>>(
       static_cast<const T*>(k), static_cast<const T*>(v), k_bs, k_ts, k_hs, v_bs, v_ts, v_hs,
-      heads, d, n, chunk, n_chunks, round_bf16, part_m, part_s, part_ctx);
+      heads, d, n, chunk, n_chunks, round_bf16, tiles, part_m, part_s, part_ctx);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long entries = (long long)d * width;
@@ -777,6 +900,19 @@ int launch_project(const void* q, long long q_bs, long long q_ts, long long q_hs
   }
   const int n_tiles = (n + S::ROWS - 1) / S::ROWS;
   project_general<T, DB><<<dim3(grid_x, batch * heads), THREADS, S::SMEM, s>>>(
+      static_cast<const T*>(q), q_bs, q_ts, q_hs, static_cast<const float*>(ctx), c_bs, c_hs,
+      c_ld, static_cast<T*>(out), heads, d, n, n_tiles, round_bf16, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_project_wide(const void* q, long long q_bs, long long q_ts, long long q_hs,
+                        const void* ctx, long long c_bs, long long c_hs, long long c_ld,
+                        void* out, int batch, int heads, int d, int n, int grid_x,
+                        int round_bf16, float scale, cudaStream_t s) {
+  const int n_tiles = (n + WIDE_ROWS - 1) / WIDE_ROWS;
+  const int col_tiles = (d + WIDE_COLS - 1) / WIDE_COLS;
+  project_wide<T><<<dim3(grid_x, batch * heads, col_tiles), THREADS, 0, s>>>(
       static_cast<const T*>(q), q_bs, q_ts, q_hs, static_cast<const float*>(ctx), c_bs, c_hs,
       c_ld, static_cast<T*>(out), heads, d, n, n_tiles, round_bf16, scale);
   return static_cast<int>(cudaGetLastError());
@@ -833,7 +969,8 @@ int folded_project_forward(const void* q, long long q_ld, long long q_bs, const 
 // head-diagonal blocks, seeded with mem_k, mem_v [n_mem, heads*d] (K1).
 // round_bf16 rounds exp(k - m) and v to bf16 in the product (K1). part_m,
 // part_s [batch*heads, n_chunks, d] and part_ctx [batch*heads, n_chunks, d, d]
-// f32 are scratch, n_chunks = ceil(n / chunk). d % 8 == 0 and d <= 128, else
+// f32 are scratch, n_chunks = ceil(n / chunk). d % 8 == 0 (a d above 128 runs
+// the 128 bucket over ceil(d / 128)^2 column tiles), else
 // cudaErrorInvalidValue. Returns cudaGetLastError() after the two launches.
 int context_forward(const void* k, const void* v, int is_f32, long long k_bs, long long k_ts,
                     long long k_hs, long long v_bs, long long v_ts, long long v_hs,
@@ -841,7 +978,7 @@ int context_forward(const void* k, const void* v, int is_f32, long long k_bs, lo
                     int d, int n, int chunk, int round_bf16, int width, void* part_m,
                     void* part_s, void* part_ctx, void* ctx, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 8 != 0 || d < 8 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (d % 8 != 0 || d < 8) return static_cast<int>(cudaErrorInvalidValue);
   float* pm = static_cast<float*>(part_m);
   float* ps = static_cast<float*>(part_s);
   float* pc = static_cast<float*>(part_ctx);
@@ -864,15 +1001,23 @@ int context_forward(const void* k, const void* v, int is_f32, long long k_bs, lo
 // heads, d] (contiguous, in q's dtype) = softmax_d(q) * scale @ ctx, with q
 // [batch, n, heads, d] given by its strides and the d x d block of (b, h) at
 // ctx + b*c_bs + h*c_hs, rows c_ld apart (f32). round_bf16 rounds p and ctx
-// to bf16 (K2). grid_x blocks per (batch, head) walk the row tiles.
+// to bf16 (K2). grid_x blocks per (batch, head) walk the row tiles (of 4096 /
+// DB rows up to d = 128, of 32 rows in each 128-wide column tile above).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// d that is not a multiple of 8 in [8, 128].
+// d that is not a multiple of 8.
 int project_forward(const void* q, int is_f32, long long q_bs, long long q_ts, long long q_hs,
                     const void* ctx, long long c_bs, long long c_hs, long long c_ld, void* out,
                     int batch, int heads, int d, int n, int grid_x, int round_bf16,
                     float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 8 != 0 || d < 8 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (d % 8 != 0 || d < 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > 128) {
+    if (is_f32)
+      return launch_project_wide<float>(q, q_bs, q_ts, q_hs, ctx, c_bs, c_hs, c_ld, out, batch,
+                                        heads, d, n, grid_x, round_bf16, scale, s);
+    return launch_project_wide<__nv_bfloat16>(q, q_bs, q_ts, q_hs, ctx, c_bs, c_hs, c_ld, out,
+                                              batch, heads, d, n, grid_x, round_bf16, scale, s);
+  }
 #define FT_PROJECT(T, DB)                                                                   \
   return launch_project<T, DB>(q, q_bs, q_ts, q_hs, ctx, c_bs, c_hs, c_ld, out, batch, heads, \
                                d, n, grid_x, round_bf16, scale, s)

@@ -11,8 +11,8 @@ Port of ``flowtrain_stochastic_interpolation_tpu/models/attention.py``:
   tokens and a head width that is a multiple of 8, the v1 kernels K4a and K4b
   (:func:`ops.linear_attention.linear_attention`) on the concatenated memory
   KV; otherwise the einsum form. On CPU tensors the kernels' wrappers run
-  their plain versions. The kernels take bf16 or f32 and head widths up to
-  128, and raise on a wider head.
+  their plain versions. The kernels take bf16 or f32 and every head width
+  that is a multiple of 8.
 * :class:`Attention` — full softmax attention with memory KV. With ``flash``
   on, at least 1024 query tokens and a head width that is a multiple of 8, it
   runs :func:`ops.flash_attention.flash_attention` (kernel K3 on the card, its

@@ -4,7 +4,8 @@ Each source under ``csrc/`` is compiled at first use, by one ``nvcc`` call
 of its own (:func:`load_all` starts several together), into a shared library
 with a plain C interface, for Hopper only (``sm_90a``), into ``_build/`` inside
 the package (listed in ``.gitignore``). The library's name carries a hash of
-the source and the flags, so an edited source is built anew. Nothing is
+the source, the headers under ``csrc/`` and the flags, so an edited source or
+header is built anew. Nothing is
 compiled while a module is imported: the CPU tests import every module.
 
 ``nvcc`` is looked up under ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``),
@@ -20,9 +21,10 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -64,9 +66,20 @@ def build_command(source: Path, output: Path, nvcc: str = "nvcc") -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    source = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of that source, of every
+    header in ``csrc/`` (a source may include any of them) and of the flags."""
+    digest = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _wait(entry) -> Tuple[float, str]:
+    """Wait for one nvcc: (seconds from its start to its end, its output)."""
+    proc, _, _, _, start = entry
+    log, _ = proc.communicate()
+    return time.perf_counter() - start, log
 
 
 def load(name: str) -> Build:
@@ -91,10 +104,13 @@ def load_all(names: Iterable[str]) -> Dict[str, Build]:
         cmd = build_command(SOURCE_DIR / f"{name}.cu", Path(tmp), nvcc_path())
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         pending[name] = (proc, cmd, tmp, path, time.perf_counter())
-    built, failures = {}, []
-    for name, (proc, cmd, tmp, path, start) in pending.items():  # wait for every build
-        log, _ = proc.communicate()
-        built[name] = (time.perf_counter() - start, log)
+
+    # wait for every build, each in its own thread, so that each one's time is its own
+    with ThreadPoolExecutor(max_workers=max(1, len(pending))) as pool:
+        built = dict(zip(pending, pool.map(_wait, pending.values())))
+    failures = []
+    for name, (proc, cmd, tmp, path, start) in pending.items():
+        log = built[name][1]
         if proc.returncode != 0:
             os.unlink(tmp)
             failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")

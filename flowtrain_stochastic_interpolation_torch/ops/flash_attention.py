@@ -9,7 +9,7 @@ tokens into k and v):
   ``lse = logsumexp(s)`` in f32 ``[B, h, N]``, with every score, probability
   and product in f32, as the TPU kernel ``_fa_kernel`` computes them. The
   kernel takes bf16 or f32 operands and every head width d that is a multiple
-  of 8 up to 128 (:data:`MAX_HEAD_DIM`); a wider head raises ``ValueError``.
+  of 8 (above 128, in 128-wide tiles of the output columns).
 * The backward (:func:`flash_attention_backward`): recomputation from ``lse``
   over blocks of 256 queries, in f32, as ``_bwd_blockwise`` does (an XLA scan
   in the JAX package, torch operations here on the card and the CPU alike).
@@ -32,7 +32,6 @@ import torch
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build
 
 SOURCE = "flash_attention"
-MAX_HEAD_DIM = 128               # the kernel takes every d % 8 == 0 up to this
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BLOCK_Q = 256                    # queries per block of the backward (JAX's default block_q)
 
@@ -79,12 +78,9 @@ def _library() -> ctypes.CDLL:
 
 
 def check_head_dim(d: int) -> None:
-    """The head widths the CUDA kernels take: multiples of 8 up to 128."""
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"the CUDA kernels take head widths d that are multiples of 8 up to "
-            f"{MAX_HEAD_DIM}, got d = {d}"
-        )
+    """The head widths the CUDA kernels take: every multiple of 8."""
+    if d % 8 or d < 8:
+        raise ValueError(f"the CUDA kernels take head widths d that are multiples of 8, got d = {d}")
 
 
 def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:

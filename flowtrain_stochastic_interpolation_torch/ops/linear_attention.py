@@ -30,8 +30,8 @@ k and v that already hold the memory tokens:
   (:func:`linear_attention_backward`).
 
 The kernels take bf16 or f32 operands and any head width d that is a
-multiple of 8 up to 128; the roundings above hold whatever the operands'
-dtype. K1 and K2 have a specialisation for 4 heads × 32 in bf16 (the
+multiple of 8 (above 128 in column tiles of 128); the roundings above hold
+whatever the operands' dtype. K1 and K2 have a specialisation for 4 heads × 32 in bf16 (the
 flagship's layer) and a general path per (batch, head) for the rest, which
 K4a and K4b share.
 
@@ -59,6 +59,7 @@ from flowtrain_stochastic_interpolation_torch.ops.flash_attention import (
 SOURCE = "linear_attention"
 _SPECIALISED = (4, 32)  # heads, d of the bf16 specialisation of K1 and K2
 _K2_ROWS = 32           # rows per tile of the specialised K2 (K2_ROWS in the source)
+_WIDE_ROWS = 32         # rows per tile of the projection at d > 128 (WIDE_ROWS)
 
 launch_counts: Dict[str, int] = {
     "folded_context": 0, "folded_project": 0, "linear_context": 0, "linear_project": 0,
@@ -216,8 +217,14 @@ def _project_grid(n: int, rows: int, blocks: int, device: torch.device) -> int:
 
 
 def _head_bucket(d: int) -> int:
-    """The kernels' head-width template that serves d (``DB`` in the source)."""
+    """The kernels' head-width template that serves d (``DB`` in the source);
+    above 128 the 128 template runs over column tiles of 128."""
     return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def _column_tiles(d: int) -> int:
+    """Column tiles of 128 per head (``tiles`` in the source): 1 up to d = 128."""
+    return -(-d // 128)
 
 
 def _context(k: torch.Tensor, v: torch.Tensor, k_strides, v_strides, heads: int, d: int,
@@ -232,7 +239,7 @@ def _context(k: torch.Tensor, v: torch.Tensor, k_strides, v_strides, heads: int,
     folded = mem_k is not None
     lib = _library()
     with torch.cuda.device(k.device):
-        chunk = _context_chunk(b * heads, n, k.device)
+        chunk = _context_chunk(b * heads * _column_tiles(d) ** 2, n, k.device)
         n_chunks = -(-n // chunk)
         f32 = dict(dtype=torch.float32, device=k.device)
         part_m = torch.empty(b * heads, n_chunks, d, **f32)
@@ -264,7 +271,9 @@ def _project(q: torch.Tensor, q_strides, ctx: torch.Tensor, ctx_strides, heads: 
         out = torch.empty(b, n, heads * d, dtype=q.dtype, device=q.device)
         if n == 0:
             return out
-        grid_x = _project_grid(n, 4096 // _head_bucket(d), b * heads, q.device)
+        tiles = _column_tiles(d)
+        rows = 4096 // _head_bucket(d) if tiles == 1 else _WIDE_ROWS
+        grid_x = _project_grid(n, rows, b * heads * tiles, q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.project_forward(
             q.data_ptr(), int(q.dtype == torch.float32), *q_strides, ctx.data_ptr(),

@@ -1,0 +1,34 @@
+"""Device timing shared by the tools: CUDA events around back-to-back calls."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def best_ms(fn: Callable[[], object], calls: int = 1, warmup: int = 2, tries: int = 5) -> float:
+    """The least device time, over ``tries``, of ``calls`` back-to-back calls of
+    ``fn``, in ms (the JAX tools' ``timeit``: min of 5 after 2 warm-ups)."""
+    for _ in range(warmup):
+        fn()
+    best = float("inf")
+    for _ in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def slope_ms(fn: Callable[[], object], hi: int, lo: int) -> float:
+    """ms per call from the slope between ``hi`` and ``lo`` back-to-back calls:
+    the fixed cost of a timed run cancels."""
+    return max(best_ms(fn, hi) - best_ms(fn, lo), 1e-9) / (hi - lo)
+
+
+def device_line() -> str:
+    return f"device: cuda {torch.cuda.get_device_name(0)}, torch {torch.__version__}"

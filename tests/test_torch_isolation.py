@@ -29,6 +29,15 @@ from {PACKAGE}.ops.linear_attention import (  # the v1 path and its kernels
 )
 from {PACKAGE}.models.attention import LinearAttention
 assert LinearAttention(8, fused=True, device="cpu").fused
+from {PACKAGE}.ops.tap_conv import (  # the fourth slice: the tap-folded conv and the probes
+    tap_conv3d, tap_conv_forward, tap_conv_forward_plain, tap_conv_weight_grad,
+    tap_conv_weight_grad_plain, use_tap_conv,
+)
+from {PACKAGE}.ops.gemm_probes import gemm_probe, gemm_probe_t, mma_probe
+from {PACKAGE}.tools import bench_gemm, bench_mma_shapes, bench_tap_conv
+import torch
+x = torch.zeros(1, 8, 8, 8, 2)
+assert tap_conv3d(x, torch.zeros(3, 3, 3, 2, 3), torch.zeros(3)).shape == (1, 8, 8, 8, 3)
 assert not any(n.split(".")[0] in {POISONED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), "modules")
 """
@@ -69,12 +78,25 @@ def test_build_targets_sm90a_into_an_ignored_directory():
 
 def test_every_kernel_source_builds_by_its_own_nvcc_call():
     sources = sorted(p.stem for p in cuda_build.SOURCE_DIR.glob("*.cu"))
-    assert sources == ["flash_attention", "linear_attention"]
+    assert sources == ["flash_attention", "gemm_probes", "linear_attention", "tap_conv"]
     outputs = {cuda_build.library_path(name) for name in sources}
-    assert len(outputs) == 2 and all(o.parent == cuda_build.BUILD_DIR for o in outputs)
+    assert len(outputs) == 4 and all(o.parent == cuda_build.BUILD_DIR for o in outputs)
     cmd = cuda_build.build_command(cuda_build.SOURCE_DIR / "flash_attention.cu",
                                    cuda_build.library_path("flash_attention"))
     assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+
+
+def test_an_edited_header_names_a_new_library(tmp_path, monkeypatch):
+    """The sources include csrc/*.cuh: a change to a header must not load a
+    library built from the old one."""
+    for path in cuda_build.SOURCE_DIR.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(cuda_build, "SOURCE_DIR", tmp_path)
+    before = {name: cuda_build.library_path(name) for name in ("tap_conv", "gemm_probes")}
+    header = tmp_path / "tile_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: cuda_build.library_path(name) for name in before}
+    assert all(before[name] != after[name] for name in before)
 
 
 def _fake_toolkit(tmp_path, fail: str = ""):

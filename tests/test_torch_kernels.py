@@ -1,6 +1,7 @@
-"""The kernels K1 and K2 (folded linear attention), K3 (flash attention) and
-K4a and K4b (v1 linear attention), their plain versions, and the backwards
-that train through them.
+"""The kernels K1 and K2 (folded linear attention), K3 (flash attention),
+K4a and K4b (v1 linear attention), K5a and K5b (the tap-folded conv) and the
+GEMM probes P1 and P2, their plain versions, and the backwards that train
+through them.
 
 Imports nothing of JAX, so it runs where JAX is not installed, with
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``. Tests
@@ -10,10 +11,13 @@ card; the rest run anywhere.
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from flowtrain_stochastic_interpolation_torch.models.attention import LinearAttention
 from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
+from flowtrain_stochastic_interpolation_torch.ops import gemm_probes as gp
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
+from flowtrain_stochastic_interpolation_torch.ops import tap_conv as tc
 
 HEADS, WIDTH = 4, 128
 
@@ -155,8 +159,9 @@ def _linear_attention_16cubed(device, dtype):
 @pytest.mark.gpu
 def test_linear_attention_f32_on_cuda_raises_instead_of_taking_einsum(cuda):
     """4096 tokens and hidden 128 on CUDA take the folded kernels whatever the
-    dtype: f32 launches them (the general path), and a head wider than the
-    kernels take raises rather than the block running einsum."""
+    dtype: f32 launches them (the general path), and so does a head of 256,
+    wider than 128, instead of the block running einsum; it agrees with the
+    einsum form up to the kernels' bf16 roundings of p, v and ctx."""
     attn, x = _linear_attention_16cubed(cuda, torch.float32)
     la.reset_launch_counts()
     with torch.inference_mode():
@@ -164,10 +169,18 @@ def test_linear_attention_f32_on_cuda_raises_instead_of_taking_einsum(cuda):
     assert la.launch_counts == _launched(folded_context=1, folded_project=1)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     wide = LinearAttention(16, heads=1, dim_head=256, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for m in wide.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
     la.reset_launch_counts()
-    with torch.inference_mode(), pytest.raises(ValueError, match="up to 128"):
-        wide(x)
-    assert la.launch_counts == _launched()
+    with torch.inference_mode():
+        out = wide(x)
+        wide.fused_folded = False
+        ref = wide(x)  # einsum
+    assert la.launch_counts == _launched(folded_context=1, folded_project=1)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert _rel_l2(out, ref) <= 1e-2
 
 
 @pytest.mark.gpu
@@ -231,9 +244,11 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda):
     q, k, v = _attention_operands(1, 64, 68, cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_attention_forward(q.float(), k, v)
-    with pytest.raises(ValueError, match="up to 128"):
-        wide = torch.zeros(1, 64, 4, 136, device=cuda, dtype=torch.bfloat16)
-        fa.flash_attention_forward(wide, wide, wide)
+    wq, wk, wv = _attention_operands(1, 64, 68, cuda, seed=1, d=136)  # wider than 128: runs
+    fa.reset_launch_counts()
+    out, lse = fa.flash_attention_forward(wq, wk, wv)
+    assert fa.launch_counts == {"flash_attention": 1}
+    assert_flash_close(out, lse, *fa.flash_attention_plain(wq, wk, wv))
     with pytest.raises(ValueError, match="multiples of 8"):
         fa.flash_attention_forward(q[..., :12], k[..., :12], v[..., :12])
     every_other = torch.zeros(1, 64, 4, 64, device=cuda, dtype=torch.bfloat16)[..., ::2]
@@ -385,18 +400,73 @@ def test_v1_kernels_match_plain_versions(cuda, batch, n, heads, d, dtype, option
 
 @pytest.mark.gpu
 def test_every_wrapper_raises_past_a_head_width_of_128(cuda):
-    q, k, v = _v1_operands(1, 64, 1, 136, cuda)
-    with pytest.raises(ValueError, match="up to 128"):
+    """Past 128 a head width must still be a multiple of 8: d = 132 raises in
+    every wrapper (the [B, N, h, d] wrappers refuse its rows, which are not
+    16-byte aligned, first). d = 136, a multiple of 8, runs in every wrapper
+    and matches its plain version (the widths wider still: the test below)."""
+    q, k, v = _v1_operands(1, 64, 1, 132, cuda)
+    refused = "multiples of 8|16-byte aligned"
+    with pytest.raises(ValueError, match=refused):
         la.linear_context(k, v)
-    with pytest.raises(ValueError, match="up to 128"):
-        la.linear_project(q, torch.zeros(1, 1, 136, 136, device=cuda))
-    with pytest.raises(ValueError, match="up to 128"):
+    with pytest.raises(ValueError, match=refused):
+        la.linear_project(q, torch.zeros(1, 1, 132, 132, device=cuda))
+    with pytest.raises(ValueError, match=refused):
         fa.flash_attention_forward(q, k, v)
-    fq, fk, fv, mk, mv = _folded_operands(1, 64, 2, 136, cuda)
-    with pytest.raises(ValueError, match="up to 128"):
-        la.folded_context(fk, fv, mk, mv, 2)
-    with pytest.raises(ValueError, match="up to 128"):
-        la.folded_project(fq, torch.zeros(1, 272, 272, device=cuda), 2)
+    fq, fk, fv, mk, mv = _folded_operands(1, 64, 32, 132, cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        la.folded_context(fk, fv, mk, mv, 32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        la.folded_project(fq, torch.zeros(1, 4224, 4224, device=cuda), 32)
+    q, k, v = _v1_operands(1, 64, 1, 136, cuda)
+    ctx_plain = la.linear_context_plain(k, v)
+    _assert_v1_close(la.linear_context(k, v), ctx_plain)
+    _assert_v1_close(la.linear_project(q, ctx_plain), la.linear_project_plain(q, ctx_plain))
+    assert_flash_close(*fa.flash_attention_forward(q, k, v), *fa.flash_attention_plain(q, k, v))
+    fq, fk, fv, mk, mv = _folded_operands(1, 64, 16, 136, cuda)
+    ctx_plain = la.folded_context_plain(fk, fv, mk, mv, 16)
+    _assert_close_to_plain(la.folded_context(fk, fv, mk, mv, 16), ctx_plain, atol_frac=3e-2,
+                           rtol=1e-2)
+    _assert_close_to_plain(la.folded_project(fq, ctx_plain, 16),
+                           la.folded_project_plain(fq, ctx_plain, 16), atol_frac=3e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [136, 256, 512])
+def test_wide_head_kernels_match_plain_versions(cuda, d, dtype):
+    """K1-K4b past a head width of 128 (in column tiles of 128): K1 and K2 at
+    4096 + 37 tokens (16 heads at d = 136, the fewest whose h·d is a multiple
+    of 128; else 1), K4a and K4b at 2 heads, K3 at 1024 + 37 queries x 1024 +
+    41 keys; each held to its kernel's tolerance."""
+    heads = 16 if d == 136 else 1
+    q, k, v, mk, mv = _folded_operands(1, 4096 + 37, heads, d, cuda, seed=d, dtype=dtype)
+    la.reset_launch_counts()
+    ctx = la.folded_context(k, v, mk, mv, heads)
+    ctx_plain = la.folded_context_plain(k, v, mk, mv, heads)
+    out = la.folded_project(q, ctx_plain, heads)
+    torch.cuda.synchronize()
+    head = torch.arange(heads * d, device=cuda) // d
+    assert torch.count_nonzero(ctx[:, head[:, None] != head[None, :]]) == 0
+    _assert_close_to_plain(ctx, ctx_plain, atol_frac=3e-2, rtol=1e-2)
+    _assert_close_to_plain(out, la.folded_project_plain(q, ctx_plain, heads), atol_frac=3e-2,
+                           rtol=2e-2)
+    q, k, v = _v1_operands(1, 4096 + 37, 2, d, cuda, seed=d + 1, dtype=dtype)
+    ctx = la.linear_context(k, v)
+    ctx_plain = la.linear_context_plain(k, v)
+    out = la.linear_project(q, ctx_plain)
+    torch.cuda.synchronize()
+    assert la.launch_counts == _launched(folded_context=1, folded_project=1, linear_context=1,
+                                         linear_project=1)
+    assert out.dtype == dtype and ctx.shape == (1, 2, d, d)
+    _assert_v1_close(ctx, ctx_plain)
+    _assert_v1_close(out, la.linear_project_plain(q, ctx_plain))
+    q, k, v = _attention_operands(1, 1024 + 37, 1024 + 41, cuda, seed=d + 2, heads=2, d=d)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    fa.reset_launch_counts()
+    out, lse = fa.flash_attention_forward(q, k, v)
+    assert fa.launch_counts == {"flash_attention": 1}
+    assert out.dtype == dtype and out.shape == q.shape
+    assert_flash_close(out, lse, *fa.flash_attention_plain(q, k, v))
 
 
 @pytest.mark.gpu
@@ -438,3 +508,156 @@ def test_linear_attention_fused_on_cuda_launches_the_v1_kernels(cuda):
         ref = folded(x)
     assert out.shape == x.shape and torch.isfinite(out).all()
     assert _rel_l2(out, ref) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The tap-folded conv K5a, K5b and its VJP, and the GEMM probes P1 and P2 (on the card)
+# ---------------------------------------------------------------------------
+def _conv_operands(batch, spatial, cin, cout, device, seed=0, dtype=torch.bfloat16):
+    """x [B, X, Y, Z, Cin] and w [3, 3, 3, Cin, Cout] in ``dtype`` (w scaled by
+    (27 Cin)^-1/2, as the JAX tool's), b [Cout] f32."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(batch, *spatial, cin, generator=gen, device=device).to(dtype)
+    w = (torch.randn(3, 3, 3, cin, cout, generator=gen, device=device) * (27 * cin) ** -0.5)
+    b = torch.randn(cout, generator=gen, device=device) * 0.1
+    return x, w.to(dtype), b
+
+
+def _assert_ulp_close(got, want, dtype):
+    """One rounding to ``dtype`` apart, where both sides sum exact products in f32
+    in another order: within one bf16 ulp (2^-7·|plain|) plus 1e-3·RMS for bf16,
+    1e-5·|plain| plus 1e-5·RMS for f32."""
+    got, want = got.float(), want.float()
+    rms = want.square().mean().sqrt().item()
+    rtol, atol = (2.0**-7, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol * rms)
+
+
+def _conv_reference(x, w, b):
+    """autograd-able f32 ``F.conv3d`` (TF32 off) on the channels-last layout."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b, padding=1)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,spatial,cin,cout,dtype", [
+    (2, (8, 8, 8), 5, 7, torch.float32),           # odd channels, one element at a time
+    (2, (16, 8, 16), 3, 4, torch.float32),
+    (1, (16, 16, 16), 48, 48, torch.float32),
+    (2, (16, 16, 16), 48, 48, torch.bfloat16),      # the flagship's width
+    (1, (16, 16, 16), 18, 48, torch.bfloat16),      # ragged K = 486
+    (1, (8, 16, 8), 96, 96, torch.bfloat16),
+    (1, (8, 8, 8), 48, 256, torch.bfloat16),       # the data gradient's widest output
+])
+def test_tap_conv_forward_matches_plain_version(cuda, batch, spatial, cin, cout, dtype):
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b = _conv_operands(batch, spatial, cin, cout, cuda, seed=cin + cout, dtype=dtype)
+    tc.reset_launch_counts()
+    out = tc.tap_conv_forward(x, w, b)
+    want = tc.tap_conv_forward_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert tc.launch_counts == {"tap_conv_forward": 1, "tap_conv_weight_grad": 0}
+    assert out.dtype == dtype and out.shape == (batch, *spatial, cout)
+    _assert_ulp_close(out, want, dtype)
+    ref = _conv_reference(x.float(), w.float(), b)
+    assert _rel_l2(out, ref) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,spatial,cin,cout,dtype", [
+    (2, (8, 8, 8), 5, 7, torch.float32),
+    (2, (16, 16, 16), 48, 48, torch.bfloat16),
+    (1, (16, 16, 16), 18, 48, torch.bfloat16),
+    (1, (16, 8, 8), 96, 128, torch.float32),
+])
+def test_tap_conv_weight_grad_matches_plain_version(cuda, batch, spatial, cin, cout, dtype):
+    """dw in f32 on both sides, the sums over voxels in another order: 1e-4·|plain|
+    plus 1e-4·RMS, and the same on a second call (no atomics)."""
+    x, _, _ = _conv_operands(batch, spatial, cin, cout, cuda, seed=cin, dtype=dtype)
+    g, _, _ = _conv_operands(batch, spatial, cout, 1, cuda, seed=cout + 1, dtype=dtype)
+    tc.reset_launch_counts()
+    dw = tc.tap_conv_weight_grad(x, g)
+    again = tc.tap_conv_weight_grad(x, g)
+    want = tc.tap_conv_weight_grad_plain(x, g)
+    torch.cuda.synchronize()
+    assert tc.launch_counts == {"tap_conv_forward": 0, "tap_conv_weight_grad": 2}
+    assert dw.dtype == torch.float32 and dw.shape == (3, 3, 3, cin, cout)
+    assert torch.equal(dw, again)
+    rms = want.square().mean().sqrt().item()
+    torch.testing.assert_close(dw, want, rtol=1e-4, atol=1e-4 * rms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tap_conv3d_vjp_matches_autograd_of_f32_conv(cuda, dtype):
+    """The custom VJP: one K5a forward, then one K5a (dx) and one K5b (dw) launch;
+    dx, dw and db against the plain backward and against autograd of the f32
+    F.conv3d on the same inputs."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b = _conv_operands(2, (16, 16, 16), 48, 48, cuda, seed=3, dtype=dtype)
+    g = torch.randn(2, 16, 16, 16, 48, generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(dtype)
+    ours = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    tc.reset_launch_counts()
+    tc.tap_conv3d(*ours).backward(g)
+    assert tc.launch_counts == {"tap_conv_forward": 2, "tap_conv_weight_grad": 1}
+    w_flip = torch.flip(w, (0, 1, 2)).transpose(3, 4)
+    plain = (tc.tap_conv_forward_plain(g, w_flip).to(dtype),
+             tc.tap_conv_weight_grad_plain(x, g).to(dtype),
+             g.sum(dim=(0, 1, 2, 3), dtype=torch.float32).to(dtype).float())
+    ref = [t.detach().float().requires_grad_() for t in (x, w, b)]
+    _conv_reference(*ref).backward(g.float())
+    limit = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for got, want, r in zip(ours, plain, ref):
+        assert got.grad.dtype == got.dtype
+        _assert_ulp_close(got.grad, want, dtype)
+        assert _rel_l2(got.grad, r.grad) <= limit
+
+
+@pytest.mark.gpu
+def test_tap_conv_wrappers_raise_instead_of_falling_back(cuda):
+    x, w, b = _conv_operands(1, (8, 8, 8), 8, 8, cuda)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tc.tap_conv_forward(x.half(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.tap_conv_forward(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="output channels"):
+        tc.tap_conv_forward(x, torch.zeros(3, 3, 3, 8, 264, device=cuda), None)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tc.tap_conv3d(x[:, :4], w, b)
+
+
+def _probe_operands(m, k, n, device, seed=0, grid=None):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (m, k) if grid is None else (grid, m + gp.WINDOW_PAD, k)
+    a = torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    return a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1000, 1296, 48), (4096, 144, 128), (300, 100, 37)])
+def test_gemm_probe_matches_plain_version(cuda, m, k, n):
+    a, b = _probe_operands(m, k, n, cuda, seed=k)
+    bt = b.T.contiguous()
+    gp.reset_launch_counts()
+    out, out_t = gp.gemm_probe(a, b), gp.gemm_probe_t(a, bt)
+    torch.cuda.synchronize()
+    assert gp.launch_counts == {"gemm_probe": 1, "gemm_probe_t": 1, "mma_probe": 0}
+    assert out.shape == (m, n) and out_t.shape == (n, m) and out.dtype == torch.bfloat16
+    _assert_ulp_close(out, gp.gemm_probe_plain(a, b), torch.bfloat16)
+    _assert_ulp_close(out_t, gp.gemm_probe_t_plain(a, bt), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m_block,k,n,grid", [(16, 48, 48, 2), (200, 432, 130, 3),
+                                              (2048, 1296, 48, 2)])
+def test_mma_probe_matches_plain_version(cuda, m_block, k, n, grid):
+    """40 products per grid step: every window of the 32 and 8 of them twice."""
+    a, b = _probe_operands(m_block, k, n, cuda, seed=m_block, grid=grid)
+    gp.reset_launch_counts()
+    out = gp.mma_probe(a, b, 40)
+    torch.cuda.synchronize()
+    assert gp.launch_counts == {"gemm_probe": 0, "gemm_probe_t": 0, "mma_probe": 1}
+    assert out.shape == (m_block, n) and out.dtype == torch.bfloat16
+    _assert_ulp_close(out, gp.mma_probe_plain(a, b, 40), torch.bfloat16)
