@@ -20,8 +20,10 @@ Phases, each printed on one flushed line with the seconds since start:
      8 x 32, 4 x 64 and 2 x 64 heads in bf16 and 4 x 32 in f32;
    - K3 (flash attention), out and lse, at b8 and b4 x 4096 queries x 4100
      keys x 4 heads x 32 (the fa16 stage), a ragged 1024 + 37 queries x
-     1024 + 41 keys, a peaked softmax (q x 8), and at b2 x 4096 x 4100 with
-     d in {8, 16, 48, 128} in bf16 and d = 32 in f32;
+     1024 + 41 keys, a peaked softmax (q x 8), at b2 x 4096 x 4100 with
+     d in {8, 16, 48, 128} in bf16 and d = 32 in f32, and the bf16
+     tensor-core path's edges: b2 x 1061 x 1065 at d in {8, 24, 40, 64, 128},
+     b3 x 5 queries x 9 keys (under one key tile) and b1 x 4096 x 4100;
    - K4a (v1 context) and K4b (v1 projection) at b8 x {262144, 32768} queries
      with 4 more keys, a ragged b2 x 32768 + 37, a peaked k (x 8), a 64³ case
      whose 4 memory tokens carry most of the weight, and b8 x 32768 in f32;
@@ -29,7 +31,7 @@ Phases, each printed on one flushed line with the seconds since start:
    the same function (``scaled_dot_product_attention``) at the main paths'
    shapes (CUDA events around 20 back-to-back launches after a warm-up,
    median of 5 such rounds; 2 launches and 3 rounds for a plain version)
-   beside the card's bound;
+   beside the card's bound (bytes, products, or for K3 the exponentials);
 4. backwards: the flash, folded and v1 backwards in bf16 against autograd of
    the f32 plain versions at 16³ b1 (flash, folded) and 32³ b1 (v1);
 4a. wide heads, the fourth slice's repair: K1 and K2 (h = 16 at d = 136, h = 1
@@ -44,7 +46,10 @@ Phases, each printed on one flushed line with the seconds since start:
    ``tools/bench_tap_conv.py``; the path, ``tap_conv3d`` forward and backward
    at [8, 64³, 48 -> 48] bf16 (K5a 2, K5b 1), with dx, dw and db against the
    plain backward and autograd of the f32 ``F.conv3d``; K5b against its plain
-   version; K5a and K5b times beside ``F.conv3d`` and
+   version at [8, 64³] with Cin 48 and 18, and on a [2, 8, 16, 24] volume at
+   Cin in {8, 96} x Cout in {8, 48, 128} bf16 (the box path's edges) and 18 ->
+   48 f32 (the chunked kernel), each twice (identical dw); K5a and K5b times
+   beside ``F.conv3d`` and
    ``torch.nn.grad.conv3d_weight``; then the tool's six cases;
 4c. the GEMM probes: P1, both layouts, at its four shapes (M = 524,288)
    against its plain version, and P2 at its ten cases at R = 40 against its
@@ -127,6 +132,10 @@ from flowtrain_stochastic_interpolation_torch.train.steps import make_train_step
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_F32_FLOP_PER_S = 67e12
+# exponentials on the special-function units: 16 results per SM per clock x
+# 132 SMs x the 1.83 GHz boost clock, the 3.9e12 per second that the
+# FlashAttention-3 paper (Shah et al., 2024, section 3.3) quotes for the H100 SXM5
+PEAK_EXP_PER_S = 3.9e12
 
 BATCH = 8
 STAGE_TOKENS = (262144, 32768, 4096)  # 64³, 32³, 16³
@@ -146,11 +155,22 @@ WIDE_FOLDED = ((8, 32, torch.bfloat16), (4, 64, torch.bfloat16), (2, 64, torch.b
                (4, 32, torch.float32))
 WIDE_FLASH = ((8, torch.bfloat16), (16, torch.bfloat16), (48, torch.bfloat16),
               (128, torch.bfloat16), (32, torch.float32))
+# K3's bf16 tensor-core path (d <= 128): (batch, queries, keys, d) at head widths
+# that pad to 16 in the k-steps, fewer keys than one 64-key tile, and the fa16
+# stage's M = N + 4 whose last tile holds 4 real keys
+FLASH_MMA_CASES = tuple((2, 1024 + 37, 1024 + 41, d) for d in (8, 24, 40, 64, 128)) + (
+    (3, 5, 9, 32), (1, 4096, 4100, 32))
 # heads wider than 128 (the fourth slice's repair): d -> heads of the folded path
 # (the fewest whose h·d is a multiple of 128)
 WIDE_HEADS = {136: 16, 256: 1, 512: 1}
 # the tap-folded conv's path: the flagship's train shape, bf16
 CONV_SHAPE = (8, 64, 48, 48)
+# K5b's bf16 box path: Cin x Cout on a non-cubic volume at batch 2, whose boxes
+# meet every face and the batch boundary; then a shape the C entry point sends
+# to the chunked kernel (f32, ragged Cin = 18)
+BOX_VOLUME = (2, 8, 16, 24)
+BOX_CASES = tuple((cin, cout, torch.bfloat16) for cin in (8, 96) for cout in (8, 48, 128)) + (
+    (18, 48, torch.float32),)
 # P2's checks against its plain version run this many products per grid step
 # (every window of the 32, 8 of them twice); its times run the tool's R = 256
 PROBE_CHECK_REPS = 40
@@ -161,11 +181,14 @@ PROBE_CHECK_REPS = 40
 # relative each). Elementwise |kernel - plain| <= atol_frac·RMS + rtol·|plain|,
 # with RMS that of the plain values on the head-diagonal blocks, and
 # ||kernel - plain|| <= rel_l2·||plain||; K1 must be exactly 0 off those blocks.
-# K3 and its plain version both compute in f32 and differ in the order of the
-# sums only, then round out to bf16: one bf16 ulp (2^-7·|plain|) plus
-# 1e-3·RMS elementwise; lse (f32) within 1e-4 + 1e-5·|plain|. K4a and K4b are
-# held to the same rule: both sides compute in f32 and differ only in the order
-# of the sums and in K4a's chunk max.
+# K3 is held to one bf16 ulp (2^-7·|plain|) plus 1e-3·RMS elementwise and 4e-3
+# relative L2, lse (f32) within 1e-4 + 1e-5·|plain|, unchanged since the
+# kernel ran on the FP32 cores. Its plain version computes in f32; the kernel's
+# bf16 path sums exact bf16 products in f32 (scores in another order) and
+# passes p to p·v as two bf16 terms, p_hi + p_lo, which carry p to about 2^-16
+# (bf16 p alone, 2^-9, misses this tolerance); then both round out to bf16.
+# K4a and K4b are held to the same rule: both sides compute in f32 and differ
+# only in the order of the sums and in K4a's chunk max.
 TOL = {
     "folded_context": dict(atol_frac=3e-2, rtol=1e-2, rel_l2=1e-2),
     "folded_project": dict(atol_frac=3e-2, rtol=2e-2, rel_l2=1e-2),
@@ -405,11 +428,14 @@ def phase_kernel_check():
         del q, k, v, ctx, ctx_plain, out, out_plain
 
     n, m = FLASH_TOKENS
-    flash_cases = [(f"b{b} x {n} q x {m} kv", b, n, m, 1.0) for b in (BATCH, TRAIN_MICRO_BATCH)]
-    flash_cases += [("b2 x 1024+37 q x 1024+41 kv ragged", 2, 1024 + 37, 1024 + 41, 1.0),
-                    (f"b{BATCH} x {n} q x {m} kv peaked (q x 8)", BATCH, n, m, 8.0)]
-    for i, (label, b, nq, nk, q_scale) in enumerate(flash_cases):
-        q, k, v = make_attention_inputs(b, nq, nk, seed=50 + i, q_scale=q_scale)
+    flash_cases = [(f"b{b} x {n} q x {m} kv", b, n, m, 1.0, HEAD_DIM)
+                   for b in (BATCH, TRAIN_MICRO_BATCH)]
+    flash_cases += [("b2 x 1024+37 q x 1024+41 kv ragged", 2, 1024 + 37, 1024 + 41, 1.0, HEAD_DIM),
+                    (f"b{BATCH} x {n} q x {m} kv peaked (q x 8)", BATCH, n, m, 8.0, HEAD_DIM)]
+    flash_cases += [(f"b{b} x {nq} q x {nk} kv x {HEADS} heads x {d}", b, nq, nk, 1.0, d)
+                    for b, nq, nk, d in FLASH_MMA_CASES]
+    for i, (label, b, nq, nk, q_scale, d) in enumerate(flash_cases):
+        q, k, v = make_attention_inputs(b, nq, nk, seed=50 + i, q_scale=q_scale, d=d)
         out, lse = fa.flash_attention_forward(q, k, v)
         want_out, want_lse = fa.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
@@ -489,21 +515,26 @@ def time_ms(fn, reps: int = 20, rounds: int = 5, warmup: int = 3) -> float:
     return statistics.median(means)
 
 
-def bound(bytes_moved: float, flops: float, peak_flop_per_s: float = PEAK_BF16_FLOP_PER_S):
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flop_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(bytes_moved: float, flops: float, peak_flop_per_s: float = PEAK_BF16_FLOP_PER_S,
+          exps: float = 0.0):
+    """The least time in ms the card could take, and what sets it: the bytes
+    over the memory rate, the products over their peak, or the exponentials
+    over the special-function units' rate, whichever is largest."""
+    times = ((bytes_moved / PEAK_BYTES_PER_S * 1e3, "bytes"),
+             (flops / peak_flop_per_s * 1e3, "operations"),
+             (exps / PEAK_EXP_PER_S * 1e3, "exponentials"))
+    return max(times, key=lambda term: term[0])
 
 
 def timed_row(name: str, label: str, kernel, plain, nbytes: float, flops: float,
               peak_flop_per_s: float = PEAK_BF16_FLOP_PER_S, library=None,
-              library_name: str = "") -> dict:
+              library_name: str = "", exps: float = 0.0) -> dict:
     """Time a kernel, its plain version and (where there is one) a library call
     on the same inputs, print the row beside the bound, and return it."""
     ms = time_ms(kernel)
     plain_ms = time_ms(plain, reps=2, rounds=3, warmup=1)
     library_ms = None if library is None else time_ms(library)
-    bound_ms, bound_by = bound(nbytes, flops, peak_flop_per_s)
+    bound_ms, bound_by = bound(nbytes, flops, peak_flop_per_s, exps)
     lib = "null" if library is None else f"({library_name}) {library_ms:.4f} ms"
     say("kernel times", f"{name} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}), library {lib}")
@@ -522,11 +553,12 @@ def phase_kernel_times():
             "folded_context", label, lambda: la.folded_context(k, v, mk, mv, HEADS),
             lambda: la.folded_context_plain(k, v, mk, mv, HEADS),
             2 * BATCH * n * WIDTH * 2 + 2 * N_MEM * WIDTH * 2 + BATCH * WIDTH * WIDTH * 4,
-            products)
+            products, exps=BATCH * (n + N_MEM) * WIDTH)
         rows[("folded_project", BATCH, n)] = timed_row(
             "folded_project", label, lambda: la.folded_project(q, ctx, HEADS),
             lambda: la.folded_project_plain(q, ctx, HEADS),
-            BATCH * n * WIDTH * 2 + BATCH * WIDTH * WIDTH * 4 + BATCH * n * WIDTH * 2, products)
+            BATCH * n * WIDTH * 2 + BATCH * WIDTH * WIDTH * 4 + BATCH * n * WIDTH * 2, products,
+            exps=BATCH * n * WIDTH)
         del q, k, v, ctx
 
     n, m = FLASH_TOKENS
@@ -539,7 +571,7 @@ def phase_kernel_times():
             2 * (2 * b * n + 2 * b * m) * WIDTH + 4 * b * HEADS * n,
             4.0 * b * HEADS * n * m * HEAD_DIM,
             library=lambda: F.scaled_dot_product_attention(qt, kt, vt),
-            library_name="scaled_dot_product_attention")
+            library_name="scaled_dot_product_attention", exps=b * HEADS * n * m)
         del q, k, v, qt, kt, vt
 
     # K4a and K4b: bf16 q, k, v in and out, f32 ctx, f32 products on the FP32 cores
@@ -552,11 +584,11 @@ def phase_kernel_times():
         rows[("linear_context", BATCH, n)] = timed_row(
             "linear_context", label, lambda: la.linear_context(k, v),
             lambda: la.linear_context_plain(k, v), 2 * BATCH * m * WIDTH * 2 + ctx_bytes,
-            2.0 * BATCH * m * WIDTH * HEAD_DIM, PEAK_F32_FLOP_PER_S)
+            2.0 * BATCH * m * WIDTH * HEAD_DIM, PEAK_F32_FLOP_PER_S, exps=BATCH * m * WIDTH)
         rows[("linear_project", BATCH, n)] = timed_row(
             "linear_project", label, lambda: la.linear_project(q, ctx),
             lambda: la.linear_project_plain(q, ctx), 2 * BATCH * n * WIDTH * 2 + ctx_bytes,
-            2.0 * BATCH * n * WIDTH * HEAD_DIM, PEAK_F32_FLOP_PER_S)
+            2.0 * BATCH * n * WIDTH * HEAD_DIM, PEAK_F32_FLOP_PER_S, exps=BATCH * n * WIDTH)
         del q, k, v, ctx
     return rows
 
@@ -692,7 +724,7 @@ def phase_wide_heads(worst: dict) -> dict:
                           2 * (2 * 2 * n + 2 * 2 * m) * HEADS * d + 4 * 2 * HEADS * n,
                           4.0 * 2 * HEADS * n * m * d,
                           library=lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                          library_name="scaled_dot_product_attention")
+                          library_name="scaled_dot_product_attention", exps=2 * HEADS * n * m)
                 del qt, kt, vt
             del q, k, v, out, lse, want_out, want_lse
     torch.cuda.empty_cache()
@@ -774,10 +806,23 @@ def phase_tap_conv(worst: dict):
         del x, w, b, out, want, ref
 
     batch, side, cin, cout = CONV_SHAPE
-    for cin_x in (cin, 18):  # the flagship's width, and a ragged K = 27·18
-        label = f"b{batch} {side}³ {cin_x} -> {cout} bf16"
-        x, _, _ = btc.operands(batch, side, cin_x, cout, "cuda")
-        g = conv_cotangent(batch, side, cout, seed=500 + cin_x)
+    def weight_grad_cases():
+        """(label, x, g): the flagship's width and a ragged K = 27·18 at its
+        train shape, then the box path's edges (and the chunked kernel's f32
+        shape) on a non-cubic volume at batch 2."""
+        for cin_x in (cin, 18):
+            x, _, _ = btc.operands(batch, side, cin_x, cout, "cuda")
+            yield (f"b{batch} {side}³ {cin_x} -> {cout} bf16", x,
+                   conv_cotangent(batch, side, cout, seed=500 + cin_x))
+        box_batch, *box_spatial = BOX_VOLUME
+        for cin_x, cout_x, dtype in BOX_CASES:
+            gen = torch.Generator(device="cuda").manual_seed(520 + cin_x + cout_x)
+            yield (f"b{box_batch} {'x'.join(map(str, box_spatial))} {cin_x} -> {cout_x} "
+                   f"{str(dtype)[6:]}",
+                   torch.randn(*BOX_VOLUME, cin_x, generator=gen, device="cuda").to(dtype),
+                   torch.randn(*BOX_VOLUME, cout_x, generator=gen, device="cuda").to(dtype))
+
+    for label, x, g in weight_grad_cases():
         dw = tc.tap_conv_weight_grad(x, g)
         again = tc.tap_conv_weight_grad(x, g)
         want = tc.tap_conv_weight_grad_plain(x, g)
@@ -1281,8 +1326,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": worst[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            "bound_ms": row["bound_ms"],
+            # exponentials are operations too, on the special-function units
+            "bound_by": "bytes" if row["bound_by"] == "bytes" else "operations",
+            "bound_term": row["bound_by"], "library_ms": row["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -13,44 +13,73 @@
 // f32, with any head width d that is a multiple of 8. out is [B, N, h, d] in
 // the operands' dtype, contiguous; lse is [B, h, N] f32.
 //
-// Numerics follow the TPU kernel: q, k and v are upcast to f32, the scores,
-// the probabilities p and the p.v product stay in f32 (the products of bf16
-// inputs are exact in f32, so only the order of the sums differs; f32 inputs
-// are used as they are), and the
-// running max, sum and accumulator are f32. Key columns past M are masked to
-// -inf and their rows are never read; query rows past N are never written.
-// Every key tile the loop visits holds at least one real key, so the running
-// max is finite after the first tile and exp(m_prev - m_new) never sees
-// -inf - (-inf).
+// bf16 operands at d <= 128 (every main path) take flash_mma, the tensor-core
+// kernel; f32 operands take flash_forward<float, D>, and d > 128 flash_wide,
+// both on the FP32 cores (further down).
 //
-// Bound on the H100: at the fa16 stage (b8 x 4096 queries x 4100 keys x 4
-// heads x 32) the two products are 4.BH.N.M.d = 6.9e10 operations, 0.07 ms at
-// the bf16 tensor-core rate, against about 34 MB of q, k, v, out and lse
-// (0.01 ms at 3.35 TB/s): the kernel is bound by operations.
+// Numerics. Key columns past M are masked to -inf and their rows are never
+// read; query rows past N are never written. Every key tile the loop visits
+// holds at least one real key, so the running max is finite after the first
+// tile and exp(m_prev - m_new) never sees -inf - (-inf). The running max, sum
+// and accumulator are f32.
+//   * flash_mma: the scores are mma.sync products of bf16 values, exact in
+//     f32, summed in f32 as in the TPU kernel (only the order differs); the
+//     softmax runs in base 2 (exp2 with d^-1/2 log2 e folded into the scale,
+//     lse = (m + log2 l) ln 2) and its sum is taken from the unrounded f32 p.
+//     p then enters the second product as two bf16 terms, p = p_hi + p_lo
+//     (p_hi = bf16(p), p_lo = bf16(p - p_hi)), each multiplied by v on the
+//     tensor cores: that carries p to about 2^-16, near f32. bf16 p alone
+//     (2^-9) misses the kernel's tolerance against its f32 plain version at
+//     the fa16 shape, and the second product costs little in a kernel bound
+//     by its exponentials.
+//   * flash_forward<float, D> and flash_wide: scores, p and p.v in f32 on the
+//     FP32 cores (bf16 operands of flash_wide are upcast exactly).
 //
-// What the design does about it. This first version is the simple, exact
-// one: each thread owns one query row (q and its f32 accumulator in
-// registers; at d > 64 four threads share a row), each block walks all key
-// tiles of its (batch, head), staging KT keys and values at a time in shared
-// memory as f32, so every staged element serves the block's rows. Scores for a whole tile are held in
-// registers, so the online-softmax rescale runs once per tile, not per key.
-// The products run on the FP32 cores: tensor cores (which would round p to
-// bf16 or tf32 for the p.v product) and TMA loads are later work.
+// Bounds on the H100 at the fa16 stage (b8 x 4096 queries x 4100 keys x 4
+// heads x 32): the two products are 4 BH N M d = 6.9e10 operations, 0.070 ms
+// at the 989 TFLOP/s of the bf16 tensor cores; q, k, v, out and lse are about
+// 34 MB, 0.010 ms at 3.35 TB/s; and the softmax takes BH N M = 5.4e8
+// exponentials, 0.138 ms at the special-function units' 16 per SM per clock
+// (3.9e12 per second on 132 SMs). So the kernel is bound by its exponentials,
+// at d = 32 well before the tensor cores.
 //
-// A head wider than 128 takes flash_wide (further down): the scores
-// accumulate over d in chunks staged in shared memory, and each block owns a
-// 128-wide tile of the output columns and recomputes the scores for it.
+// What flash_mma does about it (the FlashAttention-2 form on mma.sync): each
+// warp owns 16 query rows (two tiles of 16 at d <= 32) and keeps their Q
+// fragments in registers; K and V tiles of 64 keys stream through a ring of
+// shared-memory stages filled by cp.async, so copies overlap the products;
+// both products run on the tensor cores (m16n8k16, K and V fragments through
+// ldmatrix and ldmatrix.trans, V being key-major), P goes from the score
+// accumulators to A fragments in registers and never through shared memory,
+// and one exp2 per score is all the special-function work beside one rescale
+// per row and tile. The FP32 cores keep the scale, max, sum and the split of
+// p. -Xptxas -v: flash_mma<32 / 64 / 128> use 164 / 127 / 166 registers and
+// spill nothing. On the card (tools/ab_flash_attention.py) dropping the p_lo
+// product saves a fifth of the time and dropping the exponential a tenth: at
+// d = 32 the mma.sync instruction rate and the latency of each tile's chain (scores,
+// max, exp2, p.v) hold it, not the special-function units; overlapping one
+// tile's softmax with the next tile's products (wgmma, asynchronous) is the
+// next step.
+//
+// flash_forward<float, D> is the first, exact version: each thread owns one
+// query row (q and its f32 accumulator in registers; at d > 64 four threads
+// share a row), each block walks all key tiles of its (batch, head), staging
+// KT keys and values at a time in shared memory. A head wider than 128 takes
+// flash_wide: the scores accumulate over d in chunks staged in shared memory,
+// and each block owns a 128-wide tile of the output columns and recomputes the
+// scores for it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_async.cuh"
+
 namespace {
 
-// Head widths come in three buckets with the actual d (a multiple of 8)
-// masked at run time: q, k and v columns at or past d are zero, and out
-// columns past d are never written. Up to 64 one thread owns a whole query
+// flash_forward (f32 operands). Head widths come in three buckets with the
+// actual d (a multiple of 8) masked at run time: q, k and v columns at or past
+// d are zero, and out columns past d are never written. Up to 64 one thread owns a whole query
 // row (q and its f32 accumulator in registers); at 128 a row is split over 4
 // neighbouring threads, each holding every 4th group of 4 columns, which
 // sum their partial scores with warp shuffles, so no thread holds more than
@@ -66,19 +95,6 @@ struct FlashShape {
   static constexpr int KT = D <= 32 ? 64 : 32;
 };
 
-__device__ __forceinline__ void unpack8(const uint4 raw, float* f) {
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h2[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  unpack8(*reinterpret_cast<const uint4*>(p), f);
-}
 __device__ __forceinline__ void load8(const float* p, float* f) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -376,6 +392,253 @@ int launch_wide(const void* q, const void* k, const void* v, long long q_bs, lon
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at d <= 128: the tensor-core kernel. One block per (ROWS query rows,
+// batch*head); each warp owns MT tiles of 16 query rows and keeps their Q
+// fragments in registers for the whole key loop, and every K and V fragment
+// it loads serves its MT row tiles. Key and value tiles of KT = 64 keys stream
+// through a ring of STAGES shared-memory buffers filled by 16-byte cp.async
+// (zeros past m and past d), so the copy of tile i + STAGES - 1 overlaps the
+// products of tile i. Rows of every staged tile are padded by 8 elements (16
+// bytes): the eight rows an ldmatrix reads at once then fall in eight
+// different 16-byte bank groups.
+// ---------------------------------------------------------------------------
+template <int D>
+struct MmaShape {
+  static constexpr int MT = D <= 32 ? 2 : 1;  // 16-row tiles per warp
+  static constexpr int WARPS = 4;
+  static constexpr int STAGES = D <= 64 ? 3 : 2;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int ROWS = 16 * MT * WARPS;  // query rows per block
+  static constexpr int KT = 64;                 // keys per tile
+  static constexpr int LD = D + 8;              // padded row of a staged tile, in elements
+  static constexpr int SMEM = (ROWS + 2 * STAGES * KT) * LD * 2;
+};
+
+constexpr float LN2 = 0.69314718055994531f;
+
+template <int D>
+__global__ void __launch_bounds__(MmaShape<D>::THREADS)
+flash_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+          const __nv_bfloat16* __restrict__ v, long long q_bs, long long q_ts, long long q_hs,
+          long long k_bs, long long k_ts, long long k_hs, long long v_bs, long long v_ts,
+          long long v_hs, __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int heads,
+          int n, int m, int d, float scale_log2) {
+  using S = MmaShape<D>;
+  using namespace mma_async;
+  constexpr int KT = S::KT, LD = S::LD, STAGES = S::STAGES, MT = S::MT, CH = D / 8, NT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][LD]
+  __nv_bfloat16* kv_s = q_s + S::ROWS * LD;  // STAGES x (K [KT][LD], V [KT][LD])
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g = lane >> 2, qd = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // this lane's ldmatrix matrix and row
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int row0 = blockIdx.x * S::ROWS;
+  const __nv_bfloat16* qb = q + b * q_bs + h * q_hs;
+  const __nv_bfloat16* kb = k + b * k_bs + h * k_hs;
+  const __nv_bfloat16* vb = v + b * v_bs + h * v_hs;
+  const int chunks = d / 8;  // 16-byte chunks of a row that hold data
+  const int tiles = (m + KT - 1) / KT;
+
+  for (int i = t; i < S::ROWS * CH; i += S::THREADS) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = row0 + r < n && c < chunks;
+    cp_async16(q_s + r * LD + 8 * c, ok ? qb + (row0 + r) * q_ts + 8 * c : qb, ok);
+  }
+  auto stage = [&](int tile) {
+    __nv_bfloat16* ks = kv_s + (tile % STAGES) * 2 * KT * LD;
+    __nv_bfloat16* vs = ks + KT * LD;
+    const int base = tile * KT;
+    for (int i = t; i < KT * CH; i += S::THREADS) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = base + r < m && c < chunks;
+      cp_async16(ks + r * LD + 8 * c, ok ? kb + (base + r) * k_ts + 8 * c : kb, ok);
+      cp_async16(vs + r * LD + 8 * c, ok ? vb + (base + r) * v_ts + 8 * c : vb, ok);
+    }
+  };
+  // group 0: Q and tile 0; then one group per tile, empty past the last
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < tiles) stage(st);
+    cp_async_commit();
+  }
+
+  // per row tile mt: Q fragments, output accumulators, and the running max
+  // and sum of rows g and g + 8 (index 2 mt + r)
+  uint32_t qf[MT][D / 16][4];
+  float o[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][j][e] = 0.f;
+  float m_run[2 * MT], l_run[2 * MT];
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+  }
+
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<STAGES - 2>();  // tile it (and, at it = 0, Q) has landed
+    __syncthreads();              // ... for every thread, and tile it - 1 is consumed
+    if (it == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          ldmatrix_x4(qf[mt][ks], q_s + ((warp * MT + mt) * 16 + (mi & 1) * 8 + mr) * LD +
+                                      16 * ks + (mi >> 1) * 8);
+    }
+    if (it + STAGES - 1 < tiles) stage(it + STAGES - 1);
+    cp_async_commit();
+    const __nv_bfloat16* k_t = kv_s + (it % STAGES) * 2 * KT * LD;
+    const __nv_bfloat16* v_t = k_t + KT * LD;
+
+    // S = Q K^T for the tile's 64 keys: 8 n-tiles of 8 keys per row tile
+    float s[MT][KT / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      if (16 * ks >= d) break;  // the columns past d are zero: skip their k-steps
+#pragma unroll
+      for (int np = 0; np < KT / 16; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, k_t + (16 * np + (mi >> 1) * 8 + mr) * LD + 16 * ks + (mi & 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(s[mt][2 * np], qf[mt][ks], kf[0], kf[1]);
+          mma(s[mt][2 * np + 1], qf[mt][ks], kf[2], kf[3]);
+        }
+      }
+    }
+
+    // online softmax in base 2: scores scaled by d^-1/2 log2(e) (> 0, so the
+    // max of the raw scores scales to the max of the scaled ones), keys past m
+    // at -inf (only the last tile has any)
+    const int valid = m - it * KT;  // >= 1: every tile holds a real key
+    if (valid < KT) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * j + 2 * qd + (e & 1) >= valid) s[mt][j][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[2 * mt + r], mx[r] * scale_log2);
+        const float alpha = exp2_approx(m_run[2 * mt + r] - m_new);  // 0 on the first tile
+        l_run[2 * mt + r] *= alpha;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          o[mt][j][2 * r] *= alpha;
+          o[mt][j][2 * r + 1] *= alpha;
+        }
+        m_run[2 * mt + r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // 0 for the masked keys
+          const float p = exp2_approx(fmaf(s[mt][j][e], scale_log2, -m_run[2 * mt + (e >> 1)]));
+          s[mt][j][e] = p;
+          l_run[2 * mt + (e >> 1)] += p;  // this lane's columns; the quad's sum is taken at the end
+        }
+    }
+
+    // O += P V. Two n8 tiles of S are one k16 A fragment of P, so P stays in
+    // registers; P = P_hi + P_lo, both bf16, two products (near-f32 P).
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t hi[MT][4], lo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const float* c = &s[mt][2 * kk + (f >> 1)][2 * (f & 1)];
+          hi[mt][f] = pack_bf16(c[0], c[1]);
+          lo[mt][f] = pack_bf16(c[0] - low_f32(hi[mt][f]), c[1] - high_f32(hi[mt][f]));
+        }
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        if (16 * np >= d) break;
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, v_t + (16 * kk + (mi & 1) * 8 + mr) * LD + 16 * np + (mi >> 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(o[mt][2 * np], hi[mt], vf[0], vf[1]);
+          mma(o[mt][2 * np], lo[mt], vf[0], vf[1]);
+          mma(o[mt][2 * np + 1], hi[mt], vf[2], vf[3]);
+          mma(o[mt][2 * np + 1], lo[mt], vf[2], vf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[2 * mt + r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = row0 + (warp * MT + mt) * 16 + g + 8 * r;
+      if (row >= n) continue;
+      const float inv = 1.f / l;
+      __nv_bfloat16* op = out + (((long long)b * n + row) * heads + h) * d;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = 8 * j + 2 * qd;
+        if (col < d)
+          *reinterpret_cast<uint32_t*>(op + col) =
+              pack_bf16(o[mt][j][2 * r] * inv, o[mt][j][2 * r + 1] * inv);
+      }
+      if (qd == 0) lse[(long long)bh * n + row] = (m_run[2 * mt + r] + log2f(l)) * LN2;
+    }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, long long q_bs, long long q_ts,
+               long long q_hs, long long k_bs, long long k_ts, long long k_hs, long long v_bs,
+               long long v_ts, long long v_hs, void* out, void* lse, int batch, int heads, int n,
+               int m, int d, float scale, cudaStream_t s) {
+  using S = MmaShape<D>;
+  static bool sized = false;  // above 48 KB only once the kernel is allowed to
+  if (!sized) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  const dim3 grid((n + S::ROWS - 1) / S::ROWS, batch * heads);
+  flash_mma<D><<<grid, S::THREADS, S::SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), q_bs, q_ts, q_hs, k_bs, k_ts, k_hs, v_bs, v_ts, v_hs,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), heads, n, m, d,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, long long q_bs, long long q_ts,
            long long q_hs, long long k_bs, long long k_ts, long long k_hs, long long v_bs,
@@ -424,10 +687,14 @@ int flash_attention_forward(const void* q, const void* k, const void* v, long lo
     if (d <= 64) FT_FLASH(float, 64);
     FT_FLASH(float, 128);
   }
-  if (d <= 32) FT_FLASH(__nv_bfloat16, 32);
-  if (d <= 64) FT_FLASH(__nv_bfloat16, 64);
-  FT_FLASH(__nv_bfloat16, 128);
 #undef FT_FLASH
+#define FT_MMA(D)                                                                             \
+  return launch_mma<D>(q, k, v, q_bs, q_ts, q_hs, k_bs, k_ts, k_hs, v_bs, v_ts, v_hs, out, lse, \
+                       batch, heads, n, m, d, scale, s)
+  if (d <= 32) FT_MMA(32);
+  if (d <= 64) FT_MMA(64);
+  FT_MMA(128);
+#undef FT_MMA
 }
 
 }  // extern "C"

@@ -6,10 +6,14 @@ and ``[B, M, h, d]`` keys and values (the caller concatenates the memory
 tokens into k and v):
 
 * K3, the forward (:func:`flash_attention_forward`): ``out`` in q's dtype and
-  ``lse = logsumexp(s)`` in f32 ``[B, h, N]``, with every score, probability
-  and product in f32, as the TPU kernel ``_fa_kernel`` computes them. The
-  kernel takes bf16 or f32 operands and every head width d that is a multiple
-  of 8 (above 128, in 128-wide tiles of the output columns).
+  ``lse = logsumexp(s)`` in f32 ``[B, h, N]``. The kernel takes bf16 or f32
+  operands and every head width d that is a multiple of 8. bf16 at d <= 128
+  runs on the tensor cores: scores as exact bf16 products summed in f32, the
+  softmax in f32, and p passed to p·v as two bf16 terms, p_hi + p_lo (about
+  2^-16 of p, near the TPU kernel's f32 p). f32 operands, and any d > 128 (in
+  128-wide tiles of the output columns), compute every score, probability and
+  product in f32 on the FP32 cores, as ``_fa_kernel`` does. The plain version
+  is all f32.
 * The backward (:func:`flash_attention_backward`): recomputation from ``lse``
   over blocks of 256 queries, in f32, as ``_bwd_blockwise`` does (an XLA scan
   in the JAX package, torch operations here on the card and the CPU alike).

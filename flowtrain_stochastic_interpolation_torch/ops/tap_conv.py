@@ -10,7 +10,10 @@ the taps folded into the contraction.
   x's dtype (bf16 or f32) accumulated in f32, the f32 bias added before one
   rounding to x's dtype.
 * K5b (:func:`tap_conv_weight_grad`): ``dw``, the f32 correlation of x with
-  the output's cotangent g.
+  the output's cotangent g. The C entry point picks the kernel: bf16 with Cin
+  and Cout multiples of 8 up to 128 takes the box kernel, every other shape
+  the chunked one, and :func:`tap_conv_weight_grad` sizes the scratch of
+  per-block partial sums as the library says.
 * :func:`tap_conv3d`: both as a ``torch.autograd.Function`` whose backward is
   the JAX package's ``_vjp_bwd``: dx is K5a on g with the flipped,
   channel-transposed kernel (rounded to g's dtype, no bias) cast to x's
@@ -116,6 +119,9 @@ def _library() -> ctypes.CDLL:
     lib.tap_conv_forward.restype = i32
     lib.tap_conv_weight_grad.argtypes = [vp, vp, vp, vp, i32, ll, i32, i32, i32, i32, i32, ll, vp]
     lib.tap_conv_weight_grad.restype = i32
+    lib.tap_conv_weight_grad_slots.argtypes = [i32, ll, i32, i32, i32, i32, i32, ll,
+                                               ctypes.POINTER(i32)]
+    lib.tap_conv_weight_grad_slots.restype = ll
     return lib
 
 
@@ -174,9 +180,9 @@ def tap_conv_forward(x: torch.Tensor, w: torch.Tensor,
 
 
 def _weight_chunk(voxels: int, tiles: int, device: torch.device) -> int:
-    """Voxels per partial block of K5b: 65,536, halved (down to 1024) until the
-    grid (``tiles`` blocks per chunk) covers the SMs four times. A multiple of
-    the kernel's 64-voxel slice."""
+    """Voxels per partial block of K5b's chunked kernel: 65,536, halved (down
+    to 1024) until the grid (``tiles`` blocks per chunk) covers the SMs four
+    times. A multiple of the kernel's 64-voxel slice. The box kernel ignores it."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     chunk = 65536
     while chunk > 1024 and tiles * -(-voxels // chunk) < 4 * sms:
@@ -199,7 +205,12 @@ def tap_conv_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             return torch.zeros(3, 3, 3, cin, cout, **f32)
         tiles = -(-27 * cin // _ROWS_PER_BLOCK) * -(-cout // _COLS_PER_BLOCK)
         chunk = _weight_chunk(voxels, tiles, x.device)
-        part = torch.empty(-(-voxels // chunk), 27 * cin, cout, **f32)
+        # the scratch's slots, as the C entry point will use them (it picks the kernel)
+        err = ctypes.c_int(0)
+        slots = lib.tap_conv_weight_grad_slots(int(x.dtype == torch.float32), voxels,
+                                               *x.shape[1:4], cin, cout, chunk, ctypes.byref(err))
+        _raise_on(err.value, "tap_conv_weight_grad_slots")
+        part = torch.empty(slots, 27 * cin, cout, **f32)
         dw = torch.empty(3, 3, 3, cin, cout, **f32)
         code = lib.tap_conv_weight_grad(
             x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),

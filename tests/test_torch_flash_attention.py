@@ -7,7 +7,9 @@ CPU tensors, which run the plain PyTorch version of the CUDA kernel. Inputs
 are drawn with numpy from a seed and handed to both. Both compute the scores,
 probabilities and products in f32, so they differ only in the order of the
 sums: f32 outputs within 2e-5 (JAX's own bound against its reference), bf16
-outputs within one bf16 ulp plus 1e-3·RMS, gradients within 1e-4.
+outputs within one bf16 ulp plus 1e-3·RMS, gradients within 1e-4. The CUDA
+kernel's bf16 path passes p to p·v as two bf16 terms; a plain emulation of
+that is held to the same bf16 rule against the JAX kernel.
 """
 
 import functools
@@ -62,6 +64,35 @@ def test_plain_matches_jax_interpret_bf16(n, m):
     rms = np.sqrt(np.mean(ref**2))
     ulp = np.abs(ref) * 2.0**-7  # one bf16 ulp is at most 2^-7 of the value
     assert np.all(np.abs(out - ref) <= ulp + 1e-3 * rms), np.abs(out - ref).max()
+
+
+def _kernel_numerics(arrays, split):
+    """The CUDA kernel's bf16 path (``flash_mma``) in plain PyTorch: bf16 q, k,
+    v; scores and p in f32; p·v with p rounded to bf16 (``split=False``) or as
+    the kernel takes it, p_hi + p_lo in two bf16 terms; out rounded to bf16."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().transpose(1, 2) for a in arrays)
+    s = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    taken = hi + (p - hi).bfloat16().float() if split else hi
+    out = (taken @ v) / p.sum(-1, keepdim=True)
+    return out.transpose(1, 2).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_kernel_split_p_holds_the_k3_tolerance_and_bf16_p_does_not(q_scale):
+    """Why the kernel passes p to p·v as p_hi + p_lo: against the JAX kernel's
+    bf16 output (f32 p), the split holds K3's tolerance (one bf16 ulp plus
+    1e-3·RMS elementwise, 4e-3 relative L2) and bf16 p alone does not."""
+    arrays = _inputs(11, 256, 260)
+    arrays = (arrays[0] * q_scale, *arrays[1:])
+    ref = _jax_out(arrays, jnp.bfloat16)
+    rms = np.sqrt(np.mean(ref**2))
+    limit = np.abs(ref) * 2.0**-7 + 1e-3 * rms
+    split, rounded = _kernel_numerics(arrays, True), _kernel_numerics(arrays, False)
+    assert np.all(np.abs(split - ref) <= limit), np.abs(split - ref).max() / rms
+    assert np.linalg.norm(split - ref) <= 4e-3 * np.linalg.norm(ref)
+    assert np.count_nonzero(np.abs(rounded - ref) > limit) > 0
 
 
 @pytest.mark.parametrize("n,m", [(256, 260), (300, 304)])

@@ -18,6 +18,7 @@ from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
 from flowtrain_stochastic_interpolation_torch.ops import gemm_probes as gp
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
 from flowtrain_stochastic_interpolation_torch.ops import tap_conv as tc
+from flowtrain_stochastic_interpolation_torch.tools import ab_flash_attention as ab_flash
 
 HEADS, WIDTH = 4, 128
 
@@ -92,6 +93,13 @@ def test_plain_project_keeps_q_dtype():
     q, k, v, mk, mv = _qkv(1, 40, torch.device("cpu"))
     out = la.folded_project_plain(q, la.folded_context_plain(k, v, mk, mv, HEADS), HEADS)
     assert out.dtype == torch.bfloat16 and out.shape == (1, 40, WIDTH)
+
+
+def test_flash_variants_of_the_ab_tool_still_apply_to_the_source():
+    """tools/ab_flash_attention.py builds K3 variants by substituting lines of
+    csrc/flash_attention.cu: every substitution must still find its line."""
+    for subs, _ in ab_flash.VARIANTS.values():
+        assert ab_flash.variant_source(subs) != ab_flash.variant_source([])
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +218,10 @@ def _attention_operands(batch, n, m, device, seed=0, heads=4, d=32, q_scale=1.0)
 def assert_flash_close(out, lse, want_out, want_lse):
     """The rule chip_smoke.py holds K3 to: out within 1e-3·RMS + one bf16 ulp
     (2^-7·|plain|) elementwise and 4e-3 in relative L2; lse within
-    1e-4 + 1e-5·|plain|. Both sides compute in f32 and differ in the order of
-    the sums, then round out to bf16."""
+    1e-4 + 1e-5·|plain|. The plain version computes in f32; the kernel's scores
+    are exact bf16 products summed in f32 and its p enters p·v as two bf16
+    terms (p_hi + p_lo, near f32), so the two differ in the order of the sums
+    and by about 2^-16 in p, then round out to bf16."""
     got, want = out.float(), want_out.float()
     rms = want.square().mean().sqrt().item()
     torch.testing.assert_close(got, want, rtol=2.0**-7, atol=1e-3 * rms)
@@ -225,6 +235,11 @@ def assert_flash_close(out, lse, want_out, want_lse):
     (1, 1024 + 37, 1024 + 41, 32, 1.0),   # ragged queries and keys
     (2, 4096, 4100, 32, 8.0),       # peaked softmax
     (1, 300, 260, 64, 1.0),         # the UNet's default head width
+    # the bf16 tensor-core path: d padded to 16 in the k-steps, fewer keys than
+    # one 64-key tile, and M = N + 4 whose last tile holds 4 real keys
+    *((2, 1024 + 37, 1024 + 41, d, 1.0) for d in (8, 24, 40, 64, 128)),
+    (3, 5, 9, 32, 1.0),
+    (1, 4096, 4100, 32, 1.0),
 ])
 def test_flash_kernel_matches_plain_version(cuda, batch, n, m, d, q_scale):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -569,6 +584,12 @@ def test_tap_conv_forward_matches_plain_version(cuda, batch, spatial, cin, cout,
     (2, (16, 16, 16), 48, 48, torch.bfloat16),
     (1, (16, 16, 16), 18, 48, torch.bfloat16),
     (1, (16, 8, 8), 96, 128, torch.float32),
+    # the bf16 box path on a non-cubic volume at batch 2: boxes meet every face
+    # (Z = 24 is one and a half boxes of 16) and the batch boundary, which must
+    # contribute nothing; then f32 with a ragged Cin, which the C entry point
+    # sends to the chunked kernel
+    *((2, (8, 16, 24), cin, cout, torch.bfloat16) for cin in (8, 96) for cout in (8, 48, 128)),
+    (2, (8, 16, 24), 18, 48, torch.float32),
 ])
 def test_tap_conv_weight_grad_matches_plain_version(cuda, batch, spatial, cin, cout, dtype):
     """dw in f32 on both sides, the sums over voxels in another order: 1e-4·|plain|
