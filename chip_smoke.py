@@ -43,7 +43,10 @@ Phases, each printed on one flushed line with the seconds since start:
    the folded one;
 4b. the tap-folded conv, the fourth slice's main path: K5a against its plain
    version and against ``F.conv3d`` in f32 (TF32 off) at the six cases of
-   ``tools/bench_tap_conv.py``; the path, ``tap_conv3d`` forward and backward
+   ``tools/bench_tap_conv.py``, and against its plain version on a [2, 8, 16,
+   24] volume at Cin in {8, 48, 96} x Cout in {8, 48, 96, 128} bf16 (the box
+   kernel) and at 18 -> 48 and 48 -> 18 bf16 and 48 -> 48 f32 (the tile
+   kernel), each twice (identical outputs); the path, ``tap_conv3d`` forward and backward
    at [8, 64³, 48 -> 48] bf16 (K5a 2, K5b 1), with dx, dw and db against the
    plain backward and autograd of the f32 ``F.conv3d``; K5b against its plain
    version at [8, 64³] with Cin 48 and 18, and on a [2, 8, 16, 24] volume at
@@ -52,9 +55,11 @@ Phases, each printed on one flushed line with the seconds since start:
    beside ``F.conv3d`` and
    ``torch.nn.grad.conv3d_weight``; then the tool's six cases;
 4c. the GEMM probes: P1, both layouts, at its four shapes (M = 524,288)
-   against its plain version, and P2 at its ten cases at R = 40 against its
-   plain version; their times (P1 beside ``torch.matmul``, P2 at (2048, 1296,
-   48, 16) with R = 256); then the tools ``bench_gemm`` and
+   against its plain version, then at M = 524,288 + 37 with K in {1296, 144}
+   x N in {8, 48, 128} (the streaming kernel) and K = 100 (``gemm_p1``), each
+   twice (identical outputs); P2 at its ten cases at R = 40 against its plain
+   version; their times (P1 beside ``torch.matmul`` in the same layout, P2 at
+   (2048, 1296, 48, 16) with R = 256); then the tools ``bench_gemm`` and
    ``bench_mma_shapes`` in full;
 5. sampling, the first slice's main path: the ``unconditional_64`` UNet at
    full width, seeded random weights, bf16 compute, through
@@ -171,6 +176,17 @@ CONV_SHAPE = (8, 64, 48, 48)
 BOX_VOLUME = (2, 8, 16, 24)
 BOX_CASES = tuple((cin, cout, torch.bfloat16) for cin in (8, 96) for cout in (8, 48, 128)) + (
     (18, 48, torch.float32),)
+# K5a's box path on the same volume, Cin x Cout in bf16; then the shapes that the C
+# entry point sends to the tile kernel: the 18-channel input conv, its data
+# gradient (48 -> 18) and f32
+BOX_FORWARD_CASES = tuple((cin, cout, torch.bfloat16) for cin in (8, 48, 96)
+                          for cout in (8, 48, 96, 128)) + (
+    (18, 48, torch.bfloat16), (48, 18, torch.bfloat16), (48, 48, torch.float32))
+# P1 past the tools' shapes: M = 524,288 + 37 (a ragged last tile) at K in {1296,
+# 144} and N in {8, 48, 128} (the streaming kernel), and a K that is not a multiple
+# of 8 (gemm_p1)
+PROBE_CHECK_M = 524288 + 37
+PROBE_CHECK_SHAPES = tuple((k, n) for k in (1296, 144) for n in (8, 48, 128)) + ((100, 48),)
 # P2's checks against its plain version run this many products per grid step
 # (every window of the 32, 8 of them twice); its times run the tool's R = 256
 PROBE_CHECK_REPS = 40
@@ -526,6 +542,17 @@ def bound(bytes_moved: float, flops: float, peak_flop_per_s: float = PEAK_BF16_F
     return max(times, key=lambda term: term[0])
 
 
+def probe_work(m: int, k: int, n: int):
+    """P1's bytes (A, B and the output once each, bf16) and products."""
+    return 2 * (m * k + k * n + m * n), 2.0 * m * k * n
+
+
+def conv_work(voxels: int, cin: int, cout: int):
+    """K5a's bytes (x and the output once each and w, bf16; the f32 bias) and products."""
+    return (2 * voxels * (cin + cout) + 2 * 27 * cin * cout + 4 * cout,
+            2.0 * voxels * 27 * cin * cout)
+
+
 def timed_row(name: str, label: str, kernel, plain, nbytes: float, flops: float,
               peak_flop_per_s: float = PEAK_BF16_FLOP_PER_S, library=None,
               library_name: str = "", exps: float = 0.0) -> dict:
@@ -788,22 +815,37 @@ def conv_cotangent(batch: int, side: int, cout: int, seed: int) -> torch.Tensor:
 def phase_tap_conv(worst: dict):
     """K5a and K5b against their plain versions and F.conv3d, the custom VJP at
     the flagship's train shape (the path), their times, and the tool."""
-    for batch, side, cin, cout, _ in btc.CASES:
-        label = f"b{batch} {side}³ {cin} -> {cout} bf16"
-        x, w, b = btc.operands(batch, side, cin, cout, "cuda")
+    def forward_check(label: str, x, w, b, ref=None):
+        """K5a against its plain version, the same on a second call, and against
+        ``ref`` (F.conv3d in f32) where given."""
         out = tc.tap_conv_forward(x, w, b)
+        again = tc.tap_conv_forward(x, w, b)
         want = tc.tap_conv_forward_plain(x, w, b)
-        ref = conv_f32(x, w, b)
         torch.cuda.synchronize()
-        check(out.dtype == x.dtype and out.shape == ref.shape,
+        check(out.dtype == x.dtype and out.shape == want.shape,
               f"tap_conv_forward {label}: output {out.dtype} {tuple(out.shape)}")
         worst["tap_conv_forward"] = max(worst["tap_conv_forward"],
                                         compare("tap_conv_forward", label, out, want))
-        rel = rel_l2(out, ref)
-        say("tap conv", f"tap_conv_forward {label} against F.conv3d in f32: relative L2 "
-            f"{rel:.3e} (limit {CONV_REF_REL_TOL:g})")
-        check(rel <= CONV_REF_REL_TOL, f"tap_conv_forward {label}: {rel:.3e} from F.conv3d")
-        del x, w, b, out, want, ref
+        check(torch.equal(out, again), f"tap_conv_forward {label}: differs from run to run")
+        if ref is not None:
+            rel = rel_l2(out, ref)
+            say("tap conv", f"tap_conv_forward {label} against F.conv3d in f32: relative L2 "
+                f"{rel:.3e} (limit {CONV_REF_REL_TOL:g})")
+            check(rel <= CONV_REF_REL_TOL, f"tap_conv_forward {label}: {rel:.3e} from F.conv3d")
+
+    for batch, side, cin, cout, _ in btc.CASES:
+        x, w, b = btc.operands(batch, side, cin, cout, "cuda")
+        forward_check(f"b{batch} {side}³ {cin} -> {cout} bf16", x, w, b, conv_f32(x, w, b))
+        del x, w, b
+    box_batch, *box_spatial = BOX_VOLUME
+    for cin_x, cout_x, dtype in BOX_FORWARD_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(540 + cin_x + cout_x)
+        x = torch.randn(*BOX_VOLUME, cin_x, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(3, 3, 3, cin_x, cout_x, generator=gen, device="cuda") * (27 * cin_x) ** -0.5
+        b = torch.randn(cout_x, generator=gen, device="cuda") * 0.1
+        forward_check(f"b{box_batch} {'x'.join(map(str, box_spatial))} {cin_x} -> {cout_x} "
+                      f"{str(dtype)[6:]}", x, w.to(dtype), b)
+        del x, w, b
 
     batch, side, cin, cout = CONV_SHAPE
     def weight_grad_cases():
@@ -869,13 +911,12 @@ def phase_tap_conv(worst: dict):
     wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=fmt)
     bc = b.to(torch.bfloat16)
     voxels = batch * side**3
-    flops = 2.0 * voxels * 27 * cin * cout
+    nbytes, flops = conv_work(voxels, cin, cout)
     label = f"b{batch} {side}³ {cin} -> {cout} bf16"
     rows = {
         "tap_conv_forward": timed_row(
             "tap_conv_forward", label, lambda: tc.tap_conv_forward(x, w, b),
-            lambda: tc.tap_conv_forward_plain(x, w, b),
-            2 * voxels * (cin + cout) + 2 * 27 * cin * cout + 4 * cout, flops,
+            lambda: tc.tap_conv_forward_plain(x, w, b), nbytes, flops,
             library=lambda: F.conv3d(xc, wc, bc, padding=1),
             library_name="F.conv3d, cuDNN, channels_last_3d"),
         "tap_conv_weight_grad": timed_row(
@@ -916,15 +957,28 @@ def phase_gemm_probes(worst: dict):
             worst[name] = max(worst[name], compare(name, label, got, ref))
         del out, out_t, want, want_t
         if (k, n) == bg.SHAPES[0]:  # the conv's shape: times beside torch.matmul
-            nbytes, flops = 2 * (bg.M * k + k * n + bg.M * n), 2.0 * bg.M * k * n
-            library = dict(library=lambda: torch.matmul(a, b), library_name="torch.matmul")
+            nbytes, flops = probe_work(bg.M, k, n)
             rows["gemm_probe"] = timed_row(
                 "gemm_probe", label, lambda: gp.gemm_probe(a, b),
-                lambda: gp.gemm_probe_plain(a, b), nbytes, flops, **library)
+                lambda: gp.gemm_probe_plain(a, b), nbytes, flops,
+                library=lambda: torch.matmul(a, b), library_name="torch.matmul, [M, N]")
             rows["gemm_probe_t"] = timed_row(
                 "gemm_probe_t", label, lambda: gp.gemm_probe_t(a, bt),
-                lambda: gp.gemm_probe_t_plain(a, bt), nbytes, flops, **library)
+                lambda: gp.gemm_probe_t_plain(a, bt), nbytes, flops,
+                library=lambda: torch.matmul(bt, a.T), library_name="torch.matmul, [N, M]")
         del a, b, bt
+
+    for k, n in PROBE_CHECK_SHAPES:  # both layouts, each the same on a second call
+        label = f"[{PROBE_CHECK_M} x {k}] @ [{k} x {n}]"
+        a, b, bt = bg.operands(PROBE_CHECK_M, k, n, "cuda")
+        outs = (gp.gemm_probe(a, b), gp.gemm_probe_t(a, bt))
+        agains = (gp.gemm_probe(a, b), gp.gemm_probe_t(a, bt))
+        wants = (gp.gemm_probe_plain(a, b), gp.gemm_probe_t_plain(a, bt))
+        torch.cuda.synchronize()
+        for name, got, again, want in zip(("gemm_probe", "gemm_probe_t"), outs, agains, wants):
+            worst[name] = max(worst[name], compare(name, label, got, want))
+            check(torch.equal(got, again), f"{name} {label}: differs from run to run")
+        del a, b, bt, outs, agains, wants
 
     for m_block, k, n, grid in bms.CASES:
         label = f"({m_block}, {k}, {n}, {grid}) R = {PROBE_CHECK_REPS}"

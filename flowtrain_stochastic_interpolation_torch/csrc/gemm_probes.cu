@@ -1,20 +1,20 @@
 // The GEMM probes behind the tap-folded conv, written by hand for Hopper
 // (sm_90a), with a plain C interface bound from Python through ctypes
-// (flowtrain_stochastic_interpolation_torch/ops/gemm_probes.py). Both are
-// the block-tile GEMM of csrc/tile_mma.cuh (128 x 64 tiles, bf16 operands
-// on the tensor cores through mma.sync.m16n8k16, f32 accumulation).
+// (flowtrain_stochastic_interpolation_torch/ops/gemm_probes.py).
 //
 // P1 replaces tools/bench_pallas_gemm.py _mm_kernel / pallas_mm and
 // _mm_kernel_t / pallas_mm_t: out = bf16(A B) for A [M, K] and B [K, N], in
 // two output layouts, [M, N] and its transpose [N, M] (the TPU's "M on
-// lanes" variant, which takes B transposed, Bt [N, K]). One kernel serves
-// both through strides: B is read as (k, n) at b + k b_ks + n b_ns and out
-// is written at out + m o_ms + n o_ns.
+// lanes" variant, which takes B transposed, Bt [N, K]). B is read as (k, n)
+// at b + k b_ks + n b_ns and out is written at out + m o_ms + n o_ns.
 // Bound on the H100 at the probe's shape 524,288 x 1296 x 48: A is 1.36 GB,
 // read once, against 6.5e10 operations: 0.42 ms at 3.35 TB/s and 0.07 ms at
-// 989 TFLOP/s, so P1 is bound by bytes. The design reads each A tile once
-// per 64 output columns (once in all at N = 48) with 16-byte loads; B (at
-// most 330 KB) stays in L2.
+// 989 TFLOP/s, so P1 is bound by bytes, and its design is about keeping A's
+// stream at the memory rate. Two kernels, chosen by gemm_probe_forward from
+// the shapes (stream_path): gemm_stream (below) for K and N multiples of 8
+// with N <= 128 and the two contiguous layouts, every shape of the tools;
+// gemm_p1, the block-tile GEMM of csrc/tile_mma.cuh (128 x 64 tiles, any
+// strides), for the rest.
 //
 // P2 replaces tools/bench_mxu_shapes.py _make_probe_kernel (called from
 // _run): for A [grid, m_block + 256, K] and B [K, N],
@@ -36,6 +36,12 @@
 // At (2048, 1296, 48, 16) with R = 256 the products are 1.04e12 operations,
 // 1.06 ms at 989 TFLOP/s.
 
+#include <cuda.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "mma_async.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -47,7 +53,7 @@ using S = Shape<bf16>;
 constexpr int P2_PAD = 32 * 8;   // rows of slide below each grid step's m_block rows
 constexpr int P2_MAX_K = 1600;   // the [K, 64] B tile must fit in shared memory
 
-// P1: one block per 128 rows x 64 columns of A B.
+// P1, any shape: one block per 128 rows x 64 columns of A B.
 __global__ void __launch_bounds__(THREADS)
 gemm_p1(const bf16* __restrict__ a, const bf16* __restrict__ b, long long b_ks, long long b_ns,
         bf16* __restrict__ out, long long o_ms, long long o_ns, int M, int N, int K) {
@@ -138,17 +144,332 @@ probe_combine(const float* __restrict__ part, bf16* __restrict__ out, int steps,
   out[i] = __float2bfloat16(m);
 }
 
+
+// ---------------------------------------------------------------------------
+// P1 on the streaming path (stream_path below). It is bound by A's bytes,
+// so the design is about keeping A's stream moving:
+//   * Persistent blocks, as many as fit on the SMs, each walking the
+//     160-row tiles blockIdx.x, + gridDim.x, ... The K slices of 64 of all its
+//     tiles form one sequence that a ring of STAGES = 3 shared-memory stages
+//     takes in, so the next tile's first slices are in flight while this tile
+//     finishes and writes out. A is read once. (160 rows with 5 consumer
+//     warps ran N = 128 faster than 128 rows with 4, and N = 48 as fast.)
+//   * A's slices come by the Tensor Memory Accelerator: one thread asks for
+//     each [160, 64] box of a tensor map over A, with zeros for rows past M
+//     and k past K (K need only be a multiple of 8: 1296 = 20 x 64 + 16
+//     leaves a ragged last slice). Copies of 16 bytes a thread (cp.async)
+//     held A's stream to 2.3 TB/s with no products at all, under
+//     torch.matmul's rate. The box lands with the 128-byte swizzle: the
+//     16-byte unit u of row r at u ^ (r % 8), so the rows an ldmatrix reads
+//     meet no bank conflict.
+//   * Warp specialisation: a producer warp refills each stage as soon as the
+//     5 consumer warps have released it (an mbarrier pair per stage: full,
+//     counting the box's bytes; empty, counting the consumers), so no step
+//     waits for the block's slowest warp before its slot is refilled.
+//   * The producer warp streams B's slice from L2 beside A into each stage by
+//     cp.async, counted on the same full barrier. A stage is then small
+//     enough for two blocks on each SM (at N = 48), which ran faster than
+//     keeping all of B in shared memory for the block's life (one block per
+//     SM). B is staged as it lies: rows of B [K, N] feed mma through
+//     ldmatrix.trans, rows of Bt [N, K] through ldmatrix, and nothing is
+//     transposed by scatter. Its rows are padded to an odd number of 16-byte
+//     units (padded()), which keeps its ldmatrix free of bank conflicts.
+//   * The N tile is N rounded up to 16, so no product is spent past it. Each
+//     consumer warp owns 32 rows (two m16 tiles) and the whole N tile, so
+//     each B fragment feeds two products and each A fragment NT / 8.
+//   * The epilogue rounds to bf16 into shared memory and writes 16-byte runs:
+//     rows of N for [M, N], runs of 160 along M for [N, M] (elementwise where
+//     M is not a multiple of 8 and those runs are not 16-byte aligned).
+// ---------------------------------------------------------------------------
+namespace stream {
+constexpr int TM = 160, TK = 64, WARPS = 5, STAGES = 3;  // WARPS: the consumers
+constexpr int CONSUMERS = 32 * WARPS, NTHREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int A_STAGE = TM * TK;  // elements of one TMA box: rows of 128 bytes
+constexpr int LDBT = TK + 8;      // a staged Bt row
+constexpr int LDT = TM + 8;       // a row of the [N, M] output tile
+constexpr int MAX_N = 128;
+constexpr int ALIGN = 1024;       // the swizzled boxes' alignment in shared memory
+// the dynamic shared memory a block can use: 227 KB, less room for the
+// kernel's static mbarriers
+constexpr int SMEM_LIMIT = 232448 - 1024;
+
+// a staged row of c elements, padded to an odd number of 16-byte units
+__host__ __device__ constexpr int padded(int c) { return (c / 8) % 2 ? c : c + 8; }
+
+struct Plan {
+  int nt;       // N rounded up to 16
+  int ldb;      // a staged row of B: along n for [K, N], along k for Bt
+  int b_elems;  // B's slice in one stage
+  int smem;
+};
+
+inline Plan plan(int N, bool b_kn) {
+  Plan p;
+  p.nt = (N + 15) / 16 * 16;
+  p.ldb = b_kn ? padded(p.nt) : LDBT;
+  p.b_elems = b_kn ? TK * p.ldb : p.nt * LDBT;
+  const int epi = std::max(TM * padded(p.nt), p.nt * LDT);
+  p.smem = ALIGN + (STAGES * (A_STAGE + p.b_elems) + epi) * 2;
+  return p;
+}
+}  // namespace stream
+
+template <int NT>
+__global__ void __launch_bounds__(stream::NTHREADS)
+gemm_stream(const __grid_constant__ CUtensorMap a_map, const bf16* __restrict__ b,
+            bf16* __restrict__ out, int M, int N, int K, int b_kn, int o_mn, int ldb,
+            int b_elems) {
+  using namespace stream;
+  using namespace mma_async;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const void* a_tmap = &a_map;  // in the parameter space, where the TMA reads it
+  const uint32_t base = smem_addr(smem_raw);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + (ALIGN - base % ALIGN) % ALIGN);
+  bf16* b_s = ring + STAGES * A_STAGE;  // STAGES slices of B
+  bf16* epi = b_s + STAGES * b_elems;   // the output tile
+  constexpr int LDO = padded(NT);       // a row of the [M, N] output tile
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int tiles = (M + TM - 1) / TM, slices = (K + TK - 1) / TK;
+  const int k16 = (K + 15) / 16 * 16;
+  const int total = (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x * slices;
+
+  if (t == 0) {
+    // full: the producer's arrival with the box's bytes, and each producer
+    // lane's once its copies of B have landed
+    for (int j = 0; j < STAGES; ++j) {
+      mbar_init(&full[j], 33);
+      mbar_init(&empty[j], WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == WARPS) {  // the producer
+    for (int s = 0; s < total; ++s) {
+      const int j = s % STAGES, n = s / STAGES;
+      if (n > 0) mbar_wait(&empty[j], (n - 1) & 1);  // the consumers are done with stage j
+      const int m0 = (blockIdx.x + (s / slices) * gridDim.x) * TM, kb = (s % slices) * TK;
+      if (lane == 0) {
+        mbar_expect_tx(&full[j], A_STAGE * 2);
+        tma_load_2d(ring + j * A_STAGE, a_tmap, &full[j], kb, m0);
+      }
+      bf16* bs = b_s + j * b_elems;  // zero past N and past K
+      if (b_kn) {  // rows k of B [K, N]
+        for (int i = lane; i < TK * (NT / 8); i += 32) {
+          const int r = i / (NT / 8), c = (i % (NT / 8)) * 8;
+          const bool ok = kb + r < K && c < N;
+          cp_async16(bs + r * ldb + c, ok ? b + static_cast<long long>(kb + r) * N + c : b, ok);
+        }
+      } else {  // rows n of Bt [N, K]
+        for (int i = lane; i < NT * (TK / 8); i += 32) {
+          const int r = i >> 3, c = (i & 7) * 8;
+          const bool ok = r < N && kb + c < K;
+          cp_async16(bs + r * ldb + c, ok ? b + static_cast<long long>(r) * K + kb + c : b, ok);
+        }
+      }
+      cp_async_mbar_arrive(&full[j]);
+    }
+    cp_async_wait<0>();  // no copy outlives the block
+    return;
+  }
+
+  // the consumers. A as staged: matrix mi holds rows 8 (mi & 1).. and k unit
+  // mi >> 1 of a k16 step of an m16 tile, at its swizzled place. B: matrix mi
+  // holds k 8 (mi & 1).. and n8 tile mi >> 1 of a pair (rows k for [K, N],
+  // read through .trans; rows n for Bt).
+  const int gq = lane >> 2, qd = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int a_row = (32 * warp + mr + 8 * (mi & 1)) * TK;
+  const int b_lane = b_kn ? (mr + 8 * (mi & 1)) * ldb + 8 * (mi >> 1)
+                          : (mr + 8 * (mi >> 1)) * ldb + 8 * (mi & 1);
+  const int b_kstep = b_kn ? 16 * ldb : 16, b_pair = b_kn ? 16 : 16 * ldb;
+
+  float acc[2][NT / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int s = 0; s < total; ++s) {
+    const int j = s % STAGES;
+    mbar_wait(&full[j], (s / STAGES) & 1);  // step s's slices have landed
+    const bf16* as = ring + j * A_STAGE;
+    const int kb = (s % slices) * TK;
+    const bf16* bs = b_s + j * b_elems;
+    const int ksteps = min(TK, k16 - kb) / 16;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t af[2][4], bf[NT / 16][4];
+      const int a_unit = ((2 * ks + (mi >> 1)) ^ mr) << 3;  // rows 8 apart share r % 8
+      ldmatrix_x4(af[0], as + a_row + a_unit);
+      ldmatrix_x4(af[1], as + a_row + 16 * TK + a_unit);
+#pragma unroll
+      for (int p = 0; p < NT / 16; ++p) {
+        const bf16* bp = bs + b_lane + ks * b_kstep + p * b_pair;
+        if (b_kn) ldmatrix_x4_trans(bf[p], bp);
+        else ldmatrix_x4(bf[p], bp);
+      }
+#pragma unroll
+      for (int p = 0; p < NT / 16; ++p)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma(acc[i][2 * p], af[i], bf[p][0], bf[p][1]);
+          mma(acc[i][2 * p + 1], af[i], bf[p][2], bf[p][3]);
+        }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j]);  // this warp is done with stage j
+    if (s % slices != slices - 1) continue;
+
+    // the tile is done: bf16 into the output tile, then 16-byte runs out
+    const int m0 = (blockIdx.x + (s / slices) * gridDim.x) * TM;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int jn = 0; jn < NT / 8; ++jn)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 32 * warp + 16 * i + gq + 8 * h, c = 8 * jn + 2 * qd;
+          const float lo = acc[i][jn][2 * h], hi = acc[i][jn][2 * h + 1];
+          if (o_mn) {
+            *reinterpret_cast<uint32_t*>(epi + r * LDO + c) = pack_bf16(lo, hi);
+          } else {
+            epi[c * LDT + r] = __float2bfloat16(lo);
+            epi[(c + 1) * LDT + r] = __float2bfloat16(hi);
+          }
+          acc[i][jn][2 * h] = acc[i][jn][2 * h + 1] = 0.f;
+        }
+    bar_sync(1, CONSUMERS);  // the tile is in shared memory
+    if (o_mn) {  // [M, N]: the tile's rows are one contiguous run
+      const int rows = min(TM, M - m0), cn = N / 8;
+      for (int i = t; i < rows * cn; i += CONSUMERS) {
+        const int r = i / cn, c = (i - r * cn) * 8;
+        *reinterpret_cast<uint4*>(out + static_cast<long long>(m0 + r) * N + c) =
+            *reinterpret_cast<const uint4*>(epi + r * LDO + c);
+      }
+    } else {  // [N, M]: runs of 128 along M, one per row n
+      const bool vec = M % 8 == 0;
+      for (int i = t; i < N * (TM / 8); i += CONSUMERS) {
+        const int n = i / (TM / 8), c = (i % (TM / 8)) * 8, m = m0 + c;
+        bf16* dst = out + static_cast<long long>(n) * M + m;
+        const bf16* src = epi + n * LDT + c;
+        if (vec && m + 8 <= M) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int e = 0; e < 8 && m + e < M; ++e) dst[e] = src[e];
+        }
+      }
+    }
+    bar_sync(1, CONSUMERS);  // ... and out of it, before the next tile's writes
+  }
+}
+
+// The TMA's encoder, cuTensorMapEncodeTiled, looked up through the runtime (no link to
+// libcuda).
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [M, K] bf16 as a tensor map of [128, 64] boxes with the 128-byte swizzle,
+// zeros outside it. Returns 0, or a CUDA error code.
+int a_tensor_map(CUtensorMap* map, const void* a, int M, int K) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint32_t box[2] = {stream::TK, stream::TM}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The streaming path's shapes: K and N multiples of 8, N <= 128, B as [K, N]
+// or Bt [N, K] and out as [M, N] or [N, M], each contiguous, every pointer
+// 16-byte aligned. Every shape of tools/bench_gemm.py and chip_smoke.py.
+bool stream_path(const void* a, const void* b, const void* out, long long b_ks, long long b_ns,
+                 long long o_ms, long long o_ns, int M, int N, int K) {
+  const bool b_layout = (b_ks == N && b_ns == 1) || (b_ks == 1 && b_ns == K);
+  const bool o_layout = (o_ms == N && o_ns == 1) || (o_ms == 1 && o_ns == M);
+  const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  return K % 8 == 0 && N % 8 == 0 && N <= stream::MAX_N && b_layout && o_layout && aligned;
+}
+
+template <int NT>
+int launch_stream(const void* a, const void* b, void* out, int M, int N, int K, bool b_kn,
+                  bool o_mn, const stream::Plan& p, cudaStream_t s) {
+  static bool sized = false;  // above 48 KB only once the kernel is allowed to
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_stream<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, stream::SMEM_LIMIT);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  CUtensorMap a_map;
+  const int mapped = a_tensor_map(&a_map, a, M, K);
+  if (mapped) return mapped;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_stream<NT>, stream::NTHREADS,
+                                                        p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (M + stream::TM - 1) / stream::TM;
+  const int grid = std::min(tiles, sms * std::max(per_sm, 1));
+  gemm_stream<NT><<<grid, stream::NTHREADS, p.smem, s>>>(
+      a_map, static_cast<const bf16*>(b), static_cast<bf16*>(out), M, N, K, b_kn, o_mn, p.ldb,
+      p.b_elems);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_stream_any(const void* a, const void* b, void* out, long long b_ns, long long o_ms,
+                      long long o_ns, int M, int N, int K, cudaStream_t s) {
+  const bool b_kn = b_ns == 1, o_mn = o_ns == 1 && o_ms == N;
+  const stream::Plan p = stream::plan(N, b_kn);
+  switch (p.nt) {
+    case 16: return launch_stream<16>(a, b, out, M, N, K, b_kn, o_mn, p, s);
+    case 32: return launch_stream<32>(a, b, out, M, N, K, b_kn, o_mn, p, s);
+    case 48: return launch_stream<48>(a, b, out, M, N, K, b_kn, o_mn, p, s);
+    case 64: return launch_stream<64>(a, b, out, M, N, K, b_kn, o_mn, p, s);
+    case 80: return launch_stream<80>(a, b, out, M, N, K, b_kn, o_mn, p, s);
+    case 96: return launch_stream<96>(a, b, out, M, N, K, b_kn, o_mn, p, s);
+    case 112: return launch_stream<112>(a, b, out, M, N, K, b_kn, o_mn, p, s);
+    default: return launch_stream<128>(a, b, out, M, N, K, b_kn, o_mn, p, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // P1: out = bf16(A B), A [M, K] bf16 contiguous and 16-byte aligned, B read
 // as (k, n) at b + k b_ks + n b_ns, out written as (m, n) at out + m o_ms +
-// n o_ns (elements). Returns cudaGetLastError() after the launch.
+// n o_ns (elements). The kernel follows from the shapes: K and N multiples of
+// 8 with N <= 128, B as [K, N] or Bt [N, K] and out as [M, N] or [N, M]
+// (stream_path) take gemm_stream; every other shape takes gemm_p1. Returns
+// cudaGetLastError() after the launch.
 int gemm_probe_forward(const void* a, const void* b, long long b_ks, long long b_ns, void* out,
                        long long o_ms, long long o_ns, int M, int N, int K, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (stream_path(a, b, out, b_ks, b_ns, o_ms, o_ns, M, N, K))
+    return launch_stream_any(a, b, out, b_ns, o_ms, o_ns, M, N, K, s);
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   gemm_p1<<<grid, THREADS, 0, s>>>(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
                                     b_ks, b_ns, static_cast<bf16*>(out), o_ms, o_ns, M, N, K);

@@ -1,7 +1,10 @@
 // Building blocks of the redesigned kernels (K3's bf16 path in
-// csrc/flash_attention.cu, K5b's bf16 box path in csrc/tap_conv.cu): 16-byte
-// cp.async copies into shared memory with zero-fill, ldmatrix fragment loads
-// (plain and transposed) and mma.sync.m16n8k16 on bf16 with f32 accumulation.
+// csrc/flash_attention.cu, the bf16 box paths of K5a and K5b in
+// csrc/tap_conv.cu, P1's streaming path in csrc/gemm_probes.cu): 16-byte
+// cp.async copies into shared memory with zero-fill, tiles copied by the
+// Tensor Memory Accelerator (TMA) and counted on an mbarrier, ldmatrix
+// fragment loads (plain and transposed) and mma.sync.m16n8k16 on bf16 with
+// f32 accumulation.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, q = lane % 4), each
 // 32-bit register two bf16 values, the lower index in the lower half:
@@ -16,8 +19,8 @@
 // stored tile whose rows run along k feeds B (and A^T) through .trans, and one
 // whose rows run along m or n feeds A or B as it is.
 //
-// The tile design in csrc/tile_mma.cuh (K5a, the old K5b path, P1, P2) does
-// not use this header.
+// The tile design in csrc/tile_mma.cuh (the f32 and ragged shapes of K5a and
+// K5b, P1's other shapes, P2) does not use this header.
 
 #pragma once
 
@@ -59,6 +62,75 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(row)));
+}
+
+// the first two matrices only (lanes 0-15 give the row addresses)
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(row)));
+}
+
+// An mbarrier in shared memory that expects `count` arrivals per phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// the initialised mbarriers, visible to the TMA (the async proxy)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive on bar and tell it to expect `bytes` more from the TMA in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// arrive on bar
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// arrive on bar once this thread's cp.async copies so far have landed (the
+// arrival is counted in bar's expected count)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed. A wait of
+// 2^26 polls (seconds) means a lost copy: trap rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (int i = 0; !done; ++i) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (i == (1 << 26)) __trap();
+  }
+}
+
+// The box of a 2-D tensor map (a CUtensorMap kernel parameter) at element
+// coordinates (c0 innermost, c1) into shared memory at dst, its bytes counted
+// on bar. Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the first `threads` threads of the block (whole warps) meet at named barrier id
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // c += a b on the tensor cores, bf16 operands, f32 accumulation

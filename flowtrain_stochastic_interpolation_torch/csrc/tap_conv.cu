@@ -24,14 +24,12 @@
 // 989 TFLOP/s of the bf16 tensor cores, against 0.40 GB of x and out (K5a)
 // or x and g (K5b), 0.12 ms at 3.35 TB/s: both are bound by operations.
 //
-// What the design does about it. K5a, and K5b for f32 operands or a Cin or
-// Cout that is not a multiple of 8 or is above 128 (conv_weight_partial), are
-// the block-tile GEMM of 128 x 64 of csrc/tile_mma.cuh, with bf16 operands on
-// the tensor cores (mma.sync m16n8k16) or f32 operands on the FP32 cores.
-// K5b for bf16 with Cin and Cout multiples of 8 up to 128, the flagship's
-// shapes, is the box kernel conv_weight_box (further down, on
-// csrc/mma_async.cuh): cp.async rings of x boxes with their halo, staged once
-// for all the taps of a dx, and ldmatrix.trans fragments with no transposing
+// What the design does about it. The flagship's shapes (bf16, Cin and Cout
+// multiples of 8) take the box kernels on csrc/mma_async.cuh, further down:
+// conv_forward_box for K5a (Cin <= 96, Cout <= 128) and conv_weight_box for
+// K5b (both up to 128, not both past 96). Both stage boxes of x with their
+// y-z halo by cp.async into shared-memory rings, once for all the taps that
+// read them, and feed mma.sync m16n8k16 through ldmatrix with no transposing
 // scatter. The traps of the TPU kernel:
 //   * The halo. The TPU kernel pads x into a copy first (221 MB at b8 64^3
 //     48 bf16). Here nothing is padded: each staged element's neighbour is
@@ -44,9 +42,13 @@
 //   * Ragged K. Cin need not be a multiple of 8 (the 18-channel input conv:
 //     K = 486): such a Cin stages its elements one by one in the tile GEMM,
 //     and the slice past K is zero in both operands.
-// The tile GEMM is first-version simple: A is re-read from L2 for each of the
-// 27 taps, every element's neighbour is tested on the fly, the output is
-// written in 2-element pieces, and there is no load pipeline.
+// Every other shape (f32 operands, a ragged Cin or Cout, the wider widths)
+// takes the block-tile GEMM of 128 x 64 of csrc/tile_mma.cuh: conv_forward
+// for K5a, conv_weight_partial for K5b, with bf16 operands on the tensor
+// cores or f32 operands on the FP32 cores. It is first-version simple: A is
+// re-read from L2 for each of the 27 taps, every element's neighbour is
+// tested on the fly, the output is written in 2-element pieces, and there is
+// no load pipeline.
 
 #include "mma_async.cuh"
 #include "tile_mma.cuh"
@@ -97,7 +99,7 @@ __device__ __forceinline__ void conv_run(T (&r)[8], const T* x, long long v, int
   }
 }
 
-// K5a: one block per 128 output voxels x 64 output channels.
+// K5a, any shape: one block per 128 output voxels x 64 output channels.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv_forward(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
@@ -533,6 +535,312 @@ int launch_weight_box(const void* x, const void* g, void* part, void* dw, long l
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K5a on the box path: bf16, Cin and Cout multiples of 8, Cin <= 96 and
+// Cout <= 128 (forward_box_path below).
+//
+// The implicit GEMM out[v, co] = sum_k A[v, k] w[k, co] runs with the voxels
+// v as its m axis, in boxes of BY x BZ = 8 x 16 output voxels, one z row of a
+// box per m16 tile. A block owns a column of boxes (one y box and z box of one
+// batch item) over a run of x planes, and walks it plane by plane:
+//   * A ring of 3 shared-memory slots holds the (BY + 2) x (BZ + 2)
+//     neighbourhoods of planes xi - 1, xi and xi + 1, filled by cp.async
+//     with zeros outside the volume: the y-z halo, the faces, and the planes
+//     before 0 and past X - 1. Once the 9 taps of dx = 0 are done, the slot
+//     of plane xi - 1 takes plane xi + 2 while the other 18 taps run. So each
+//     plane is fetched once per box column, (10 x 18) / (8 x 16) = 1.4 times
+//     the bytes of x, where the tile kernel passes x through L2 27 times.
+//     A block never leaves its batch item.
+//   * A fragments (voxels x channels) come through ldmatrix from the staged
+//     rows of the voxels shifted by (dy, dz), one row address per lane, so a
+//     tap's shift costs nothing. B fragments come from w [27 Cin, Cout]
+//     through ldmatrix.trans.
+//   * w stays in shared memory for the block's life where it fits beside the
+//     ring (48 -> 48: 145 KB beside 60 KB; faster there than streaming it);
+//     else each tap's [Cin, Cout] comes through a second ring of WS = 3 slots
+//     from L2 (96 -> 96: 20 KB a tap).
+//   * 8 warps: 4 along the box's y rows (MT = 2 m16 tiles each) x 2 chunks of
+//     Cout's n8 tiles (3 each at Cout = 48: no column wasted). Each B
+//     fragment feeds two products, each A fragment its chunk's n8 tiles. At
+//     48 -> 48 this ran faster than 16 warps of one tile or 4 warps of four
+//     (tools/ab_gemm_conv.py).
+//   * The output leaves the registers as bf16 pairs, the f32 bias added
+//     before the one rounding.
+// A Cin that is an odd multiple of 8 (8, 24, ...) ends each tap with a half
+// k16 step: its second half reads the first and is zeroed in A.
+// The x walk of a box column is split in segments where that evens out the
+// waves of blocks on the SMs (forward_segments): at 16^3 or 32^3 a box
+// column alone leaves most SMs idle.
+// ---------------------------------------------------------------------------
+namespace fwd {
+constexpr int BY = 8, BZ = 16, HY = BY + 2, HZ = BZ + 2, ROWS = HY * HZ;
+constexpr int MT = 2;  // m16 tiles (y rows of the box) a warp
+constexpr int WARPS_M = BY / MT, SLOTS = 3, WS = 3;
+constexpr int MAX_THREADS = 32 * WARPS_M * 2;
+constexpr int MAX_CIN = 96, MAX_COUT = 128;
+
+struct Plan {
+  int nchunks;   // chunks of Cout's n8 tiles: 2, or 1 at Cout = 8
+  int nw;        // n8 tiles per chunk
+  int warps;
+  int resident;  // all of w stays in shared memory
+  int smem;
+};
+
+inline Plan plan(int cin, int cout) {
+  Plan p;
+  const int ntiles = cout / 8;
+  p.nchunks = ntiles >= 2 ? 2 : 1;
+  p.nw = (ntiles + p.nchunks - 1) / p.nchunks;
+  p.warps = WARPS_M * p.nchunks;
+  const int planes = SLOTS * ROWS * box::padded(cin);
+  const int w_all = 27 * cin * box::padded(cout);
+  p.resident = (w_all + planes) * 2 <= box::SMEM_LIMIT;
+  p.smem = ((p.resident ? w_all : WS * cin * box::padded(cout)) + planes) * 2;
+  return p;
+}
+}  // namespace fwd
+
+template <int NW>
+__global__ void __launch_bounds__(fwd::MAX_THREADS, 1)
+conv_forward_box(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int X, int Y,
+                 int Z, int cin, int cout, int segments, int resident) {
+  using namespace fwd;
+  using namespace mma_async;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int csx = box::padded(cin), ldw = box::padded(cout);
+  const int plane_elems = ROWS * csx, tap_elems = cin * ldw;
+  bf16* w_s = reinterpret_cast<bf16*>(smem_raw);  // all of w, or a ring of WS taps
+  bf16* planes = w_s + (resident ? 27 : WS) * tap_elems;
+
+  const int t = threadIdx.x, nthreads = blockDim.x, warp = t >> 5, lane = t & 31;
+  const int gq = lane >> 2, qd = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int wm = warp % WARPS_M, nch = warp / WARPS_M;
+  const int ntc = min(NW, cout / 8 - NW * nch);  // n8 tiles in this warp's chunk
+
+  // the block's box column and x segment
+  const int nzb = (Z + BZ - 1) / BZ, nyb = (Y + BY - 1) / BY;
+  int idx = blockIdx.x;
+  const int zb = idx % nzb;
+  idx /= nzb;
+  const int yb = idx % nyb;
+  idx /= nyb;
+  const int seg = idx % segments, bi = idx / segments;
+  const int x_begin = seg * X / segments, x_end = (seg + 1) * X / segments;
+  const int y0 = yb * BY, z0 = zb * BZ;
+  const long long plane_voxels = static_cast<long long>(Y) * Z;
+  const bf16* x_item = x + static_cast<long long>(bi) * X * plane_voxels * cin;
+
+  // x plane xp (-1 <= xp <= X) over the box's neighbourhood, into its slot
+  auto stage_plane = [&](int xp) {
+    bf16* ps = planes + ((xp + SLOTS) % SLOTS) * plane_elems;
+    const bool plane = 0 <= xp && xp < X;
+    const int cn = cin / 8;
+    for (int i = t; i < ROWS * cn; i += nthreads) {
+      const int rv = i / cn, c = (i - rv * cn) * 8;
+      const int yr = rv / HZ, zr = rv - yr * HZ;
+      const int y = y0 + yr - 1, z = z0 + zr - 1;
+      const bool ok = plane && static_cast<unsigned>(y) < static_cast<unsigned>(Y) &&
+                      static_cast<unsigned>(z) < static_cast<unsigned>(Z);
+      cp_async16(ps + rv * csx + c,
+                 ok ? x_item + (xp * plane_voxels + static_cast<long long>(y) * Z + z) * cin + c
+                    : x,
+                 ok);
+    }
+  };
+  // rows row0 .. row0 + rows - 1 of w [27 Cin, Cout] into dst
+  auto stage_w = [&](bf16* dst, int row0, int rows) {
+    const int cn = cout / 8;
+    for (int i = t; i < rows * cn; i += nthreads) {
+      const int r = i / cn, c = (i - r * cn) * 8;
+      cp_async16(dst + r * ldw + c, w + static_cast<long long>(row0 + r) * cout + c, true);
+    }
+  };
+
+  // A as staged: rows are the neighbourhood's voxels, columns the channels.
+  // Matrix mi holds z 8 (mi & 1).. of the warp's y row (m16 tile i) and
+  // channels 8 (mi >> 1).. of the k16 step. B as staged: rows are a tap's
+  // channels, columns Cout; matrix mi holds channels 8 (mi & 1).. and n8
+  // tile mi >> 1 of a pair. In a half step the second half reads the first.
+  int a_off[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    a_off[i] = ((MT * wm + i) * HZ + mr + 8 * (mi & 1)) * csx + 8 * (mi >> 1);
+  const int a_half = 8 * (mi >> 1);
+  const int b_off = (mr + 8 * (mi & 1)) * ldw + 8 * (NW * nch + (mi >> 1));
+  const int b_half = 8 * (mi & 1) * ldw;
+  const int csteps = (cin + 15) / 16;
+  const bool half_last = cin % 16 != 0;
+
+  float acc[MT][NW][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // the first group: w (all of it, or tap 0) and planes x_begin - 1 .. x_begin + 1
+  const int total = (x_end - x_begin) * 27;
+  stage_w(w_s, 0, resident ? 27 * cin : cin);
+  for (int d = -1; d <= 1; ++d) stage_plane(x_begin + d);
+  cp_async_commit();
+  if (!resident) {
+#pragma unroll
+    for (int s = 1; s < WS - 1; ++s) {
+      if (s < total) stage_w(w_s + s * tap_elems, (s % 27) * cin, cin);
+      cp_async_commit();
+    }
+  }
+
+  for (int s = 0; s < total; ++s) {
+    const int pl = s / 27, tap = s - 27 * pl, xi = x_begin + pl;
+    if (!resident) {  // a w tap per step, and plane xi + 2 with tap 9
+      cp_async_wait<WS - 2>();  // step s's tap has landed
+      __syncthreads();          // ... for every thread, and step s - 1 is consumed
+      const int sn = s + WS - 1;
+      if (sn < total) stage_w(w_s + (sn % WS) * tap_elems, (sn % 27) * cin, cin);
+      if (tap == 9 && xi + 1 < x_end) stage_plane(xi + 2);
+      cp_async_commit();
+    } else if (tap == 0) {
+      cp_async_wait<0>();  // plane xi + 1 has landed
+      __syncthreads();
+    } else if (tap == 9) {
+      __syncthreads();  // the taps of dx = 0 are done with plane xi - 1
+      if (xi + 1 < x_end) stage_plane(xi + 2);
+      cp_async_commit();
+    }
+    const int dx = tap / 9, dy = (tap / 3) % 3, dz = tap % 3;
+    const bf16* xs = planes + ((xi + dx - 1 + SLOTS) % SLOTS) * plane_elems + (dy * HZ + dz) * csx;
+    const bf16* wt = w_s + (resident ? tap : s % WS) * tap_elems;
+    for (int cs = 0; cs < csteps; ++cs) {
+      const bool half = half_last && cs == csteps - 1;
+      uint32_t af[MT][4], bf[(NW + 1) / 2][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldmatrix_x4(af[i], xs + a_off[i] + 16 * cs - (half ? a_half : 0));
+      const bf16* wk = wt + 16 * cs * ldw + b_off - (half ? b_half : 0);
+#pragma unroll
+      for (int p = 0; p < (NW + 1) / 2; ++p) {
+        if (2 * p + 1 < ntc) {
+          ldmatrix_x4_trans(bf[p], wk + 16 * p);
+        } else if (2 * p < ntc) {
+          uint32_t b2[2];
+          ldmatrix_x2_trans(b2, wk + 16 * p);
+          bf[p][0] = b2[0];
+          bf[p][1] = b2[1];
+        }
+      }
+      if (half) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) af[i][2] = af[i][3] = 0u;
+      }
+#pragma unroll
+      for (int p = 0; p < (NW + 1) / 2; ++p)
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if (2 * p < ntc) mma(acc[i][2 * p], af[i], bf[p][0], bf[p][1]);
+          if (2 * p + 1 < ntc) mma(acc[i][2 * p + 1], af[i], bf[p][2], bf[p][3]);
+        }
+    }
+    if (tap != 26) continue;
+
+    // plane xi is done: + bias, one rounding, bf16 pairs out
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int y = y0 + MT * wm + i;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int z = z0 + gq + 8 * h;
+        bf16* o = out + ((static_cast<long long>(bi) * X + xi) * plane_voxels +
+                         static_cast<long long>(y) * Z + z) * cout;
+#pragma unroll
+        for (int nt = 0; nt < NW; ++nt) {
+          const int co = 8 * (NW * nch + nt) + 2 * qd;
+          if (nt < ntc && y < Y && z < Z)
+            *reinterpret_cast<uint32_t*>(o + co) =
+                pack_bf16(acc[i][nt][2 * h] + (bias ? bias[co] : 0.f),
+                          acc[i][nt][2 * h + 1] + (bias ? bias[co + 1] : 0.f));
+          acc[i][nt][2 * h] = acc[i][nt][2 * h + 1] = 0.f;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+// The forward box path's shapes: bf16, Cin and Cout multiples of 8, Cin <= 96
+// and Cout <= 128 (the ring and w, or w's ring, fit shared memory at all of them).
+bool forward_box_path(int is_f32, int cin, int cout) {
+  return !is_f32 && cin % 8 == 0 && cout % 8 == 0 && cin <= fwd::MAX_CIN &&
+         cout <= fwd::MAX_COUT && fwd::plan(cin, cout).smem <= box::SMEM_LIMIT;
+}
+
+// Segments of the x walk: the count s (at most X) that minimises the waves of
+// blocks on the card times the planes a block walks, each segment's first
+// plane counted one and a half times (the two planes of halo it stages first).
+int forward_segments(long long columns, int X, long long concurrent) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int s = 1; s <= X && s <= 64; ++s) {
+    const long long waves = (columns * s + concurrent - 1) / concurrent;
+    const long long cost = waves * (2LL * ((X + s - 1) / s) + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int NW>
+int launch_forward_box(const void* x, const void* w, const void* bias, void* out, long long voxels,
+                       int X, int Y, int Z, int cin, int cout, const fwd::Plan& p,
+                       cudaStream_t s) {
+  static bool sized = false;  // above 48 KB only once the kernel is allowed to
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_forward_box<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, box::SMEM_LIMIT);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_forward_box<NW>,
+                                                        32 * p.warps, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long batch = voxels / (static_cast<long long>(X) * Y * Z);
+  const long long columns =
+      batch * ((Y + fwd::BY - 1) / fwd::BY) * ((Z + fwd::BZ - 1) / fwd::BZ);
+  const int segments =
+      forward_segments(columns, X, static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1));
+  conv_forward_box<NW><<<static_cast<unsigned>(columns * segments), 32 * p.warps, p.smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), X, Y, Z, cin, cout,
+      segments, p.resident);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_forward_box_any(const void* x, const void* w, const void* bias, void* out,
+                           long long voxels, int X, int Y, int Z, int cin, int cout,
+                           cudaStream_t s) {
+  const fwd::Plan p = fwd::plan(cin, cout);
+  switch (p.nw) {
+    case 1: return launch_forward_box<1>(x, w, bias, out, voxels, X, Y, Z, cin, cout, p, s);
+    case 2: return launch_forward_box<2>(x, w, bias, out, voxels, X, Y, Z, cin, cout, p, s);
+    case 3: return launch_forward_box<3>(x, w, bias, out, voxels, X, Y, Z, cin, cout, p, s);
+    case 4: return launch_forward_box<4>(x, w, bias, out, voxels, X, Y, Z, cin, cout, p, s);
+    case 5: return launch_forward_box<5>(x, w, bias, out, voxels, X, Y, Z, cin, cout, p, s);
+    case 6: return launch_forward_box<6>(x, w, bias, out, voxels, X, Y, Z, cin, cout, p, s);
+    case 7: return launch_forward_box<7>(x, w, bias, out, voxels, X, Y, Z, cin, cout, p, s);
+    default: return launch_forward_box<8>(x, w, bias, out, voxels, X, Y, Z, cin, cout, p, s);
+  }
+}
+
 template <typename T>
 int launch_forward(const void* x, const void* w, const void* bias, void* out, long long voxels,
                    int X, int Y, int Z, int cin, int cout, cudaStream_t s) {
@@ -567,12 +875,19 @@ extern "C" {
 // K5a: out [voxels, cout] (channels-last, in x's dtype) from x [voxels =
 // B X Y Z, cin] and w [27 cin, cout] (DHWIO, already in x's dtype), both
 // bf16 (is_f32 == 0) or both f32, contiguous and 16-byte aligned; bias [cout]
-// f32 or NULL for none. 1 <= cout <= 256. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a cout or cin out of range.
+// f32 or NULL for none. 1 <= cout <= 256. The kernel follows from the shapes:
+// bf16 with Cin and Cout multiples of 8, Cin <= 96 and Cout <= 128
+// (forward_box_path: the flagship's 48 -> 48 and its data gradient, 96 ->
+// 48, 96 -> 96) takes conv_forward_box; f32, a ragged Cin or Cout (the
+// 18-channel input conv and its data gradient 48 -> 18) and the wider ones
+// take conv_forward. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a cout or cin out of range.
 int tap_conv_forward(const void* x, const void* w, const void* bias, void* out, int is_f32,
                      long long voxels, int X, int Y, int Z, int cin, int cout, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cin < 1 || cout < 1 || cout > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (forward_box_path(is_f32, cin, cout))
+    return launch_forward_box_any(x, w, bias, out, voxels, X, Y, Z, cin, cout, s);
   if (is_f32) return launch_forward<float>(x, w, bias, out, voxels, X, Y, Z, cin, cout, s);
   return launch_forward<__nv_bfloat16>(x, w, bias, out, voxels, X, Y, Z, cin, cout, s);
 }

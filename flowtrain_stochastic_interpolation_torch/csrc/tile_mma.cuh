@@ -1,5 +1,8 @@
-// One block-tile GEMM design shared by the tap-folded conv (K5a, K5b,
-// csrc/tap_conv.cu) and the GEMM probes (P1, P2, csrc/gemm_probes.cu).
+// One block-tile GEMM design for the shapes that the redesigned kernels of
+// csrc/mma_async.cuh do not take: the tap-folded conv's f32 and ragged
+// shapes (conv_forward for K5a, conv_weight_partial for K5b, csrc/tap_conv.cu)
+// and the GEMM probes' (gemm_p1 for P1's other shapes, and P2,
+// csrc/gemm_probes.cu).
 //
 // A block of 256 threads (8 warps, 4 along M x 2 along N) owns a BM x BN =
 // 128 x 64 tile of C = A B. The reduction axis K is walked in slices of BK:

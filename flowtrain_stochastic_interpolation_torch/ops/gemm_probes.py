@@ -13,7 +13,10 @@ Port of the two probe kernels of the JAX package's tools:
   R products per grid step, each over a row window that slides by 8. The
   kernel computes all of them: the probe measures the product rate at (K, N).
 
-They take bf16 only, as the TPU kernels. Each wrapper takes its plain PyTorch
+They take bf16 only, as the TPU kernels. P1's C entry point picks the
+kernel: K and N multiples of 8 with N ≤ 128 (every shape of the tools) take the
+streaming kernel, which reads A through the Tensor Memory Accelerator; every
+other shape takes the block-tile one. Each wrapper takes its plain PyTorch
 version (the same products in f32 on the bf16 inputs, rounded to bf16) for
 tensors on the CPU, and only then. For CUDA tensors it launches the
 hand-written kernel in ``csrc/gemm_probes.cu`` (built by :mod:`.cuda_build`),

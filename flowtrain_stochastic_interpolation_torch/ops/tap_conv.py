@@ -8,7 +8,9 @@ the taps folded into the contraction.
 
 * K5a (:func:`tap_conv_forward`): ``w`` rounded to x's dtype, products in
   x's dtype (bf16 or f32) accumulated in f32, the f32 bias added before one
-  rounding to x's dtype.
+  rounding to x's dtype. The C entry point picks the kernel: bf16 with Cin and
+  Cout multiples of 8, Cin ≤ 96 and Cout ≤ 128 (the flagship's 48 → 48 and its
+  data gradient) takes the box kernel, every other shape the tile kernel.
 * K5b (:func:`tap_conv_weight_grad`): ``dw``, the f32 correlation of x with
   the output's cotangent g. The C entry point picks the kernel: bf16 with Cin
   and Cout multiples of 8 up to 128 takes the box kernel, every other shape

@@ -19,17 +19,16 @@ least of 5 after 2 warm-ups of 20 back-to-back launches, beside
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import subprocess
 from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from flowtrain_stochastic_interpolation_torch.device import resolve_device
-from flowtrain_stochastic_interpolation_torch.ops import cuda_build
 from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
+from flowtrain_stochastic_interpolation_torch.tools import variants
 from flowtrain_stochastic_interpolation_torch.tools.timing import best_ms, device_line
+from flowtrain_stochastic_interpolation_torch.tools.variants import Substitutions
 
 CALLS = 20
 HEADS, D, N, M = 4, 32, 4096, 4100
@@ -38,7 +37,7 @@ _WARPS = "static constexpr int WARPS = 4;"
 _LOW_PRODUCT = ("        mma(o[mt][2 * np], lo[mt], vf[0], vf[1]);\n",
                 "        mma(o[mt][2 * np + 1], lo[mt], vf[2], vf[3]);\n")
 # name -> (substitutions, whether the outputs are held to the plain version)
-VARIANTS: Dict[str, Tuple[List[Tuple[str, str]], bool]] = {
+VARIANTS: Dict[str, Tuple[Substitutions, bool]] = {
     "1 row tile x 8 warps": ([(_ROW_TILES, "static constexpr int MT = 1;"),
                               (_WARPS, "static constexpr int WARPS = D <= 32 ? 8 : 4;")], True),
     "1 row tile x 4 warps": ([(_ROW_TILES, "static constexpr int MT = 1;")], True),
@@ -55,45 +54,14 @@ VARIANTS: Dict[str, Tuple[List[Tuple[str, str]], bool]] = {
 }
 
 
-def variant_source(subs: List[Tuple[str, str]]) -> str:
+def variant_source(subs: Substitutions) -> str:
     """The kernel source with ``subs`` applied; raises if one no longer applies."""
-    text = (cuda_build.SOURCE_DIR / f"{fa.SOURCE}.cu").read_text()
-    for old, new in subs:
-        if old not in text:
-            raise ValueError(f"the source no longer holds {old!r}")
-        text = text.replace(old, new)
-    return text
+    return variants.variant_source(fa.SOURCE, subs)
 
 
-def build_variants() -> Dict[str, ctypes.CDLL]:
-    """Build every variant, one nvcc each, all started together."""
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = cuda_build.nvcc_path()
-    jobs = {}
-    for name, (subs, _) in VARIANTS.items():
-        text = variant_source(subs)
-        digest = hashlib.sha256(text.encode()).hexdigest()[:12]
-        # beside the original source, so that its headers resolve
-        source = cuda_build.SOURCE_DIR / f"_ab_{digest}.cu"
-        source.write_text(text)
-        library = cuda_build.BUILD_DIR / f"libab_flash-{digest}.so"
-        cmd = cuda_build.build_command(source, library, nvcc)
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True), source, library)
-    libs = {}
-    for name, (proc, source, library) in jobs.items():
-        log, _ = proc.communicate()
-        source.unlink()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        registers = [line.split("Used ")[1].split(",")[0] for line in log.splitlines()
-                     if "Used" in line and "registers" in line]
-        print(f"built {name}: registers per template {registers}", flush=True)
-        lib = ctypes.CDLL(str(library))
-        lib.flash_attention_forward.argtypes = fa._library().flash_attention_forward.argtypes
-        lib.flash_attention_forward.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.flash_attention_forward.argtypes = fa._library().flash_attention_forward.argtypes
+    lib.flash_attention_forward.restype = ctypes.c_int
 
 
 def launch(lib: ctypes.CDLL, q, k, v):
@@ -122,7 +90,9 @@ def operands(batch: int, device):
 def main() -> None:
     device = resolve_device()
     print(device_line(), flush=True)
-    libs = {"kernel": fa._library(), **build_variants()}
+    built = variants.build_variants(fa.SOURCE, {n: subs for n, (subs, _) in VARIANTS.items()},
+                                    _bind)
+    libs = {"kernel": fa._library(), **built}
     for batch in (8, 4):
         q, k, v = operands(batch, device)
         want, want_lse = fa.flash_attention_plain(q, k, v)

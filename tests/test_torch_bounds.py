@@ -38,3 +38,17 @@ def test_bound_picks_the_largest_term():
     assert chip_smoke.bound(chip_smoke.PEAK_BYTES_PER_S * 1e-3, 0) == (pytest.approx(1.0), "bytes")
     assert chip_smoke.bound(1, 1, exps=chip_smoke.PEAK_EXP_PER_S * 2e-3) == (
         pytest.approx(2.0), "exponentials")
+
+
+def test_gemm_probe_at_the_conv_shape_is_bound_by_bytes():
+    """P1 at 524,288 x 1296 x 48: A's 1.36 GB over 3.35 TB/s, against 6.5e10 products."""
+    ms, by = chip_smoke.bound(*chip_smoke.probe_work(524288, 1296, 48))
+    assert by == "bytes"
+    assert ms == pytest.approx(0.4207, abs=1e-4)
+
+
+def test_tap_conv_forward_at_the_train_shape_is_bound_by_operations():
+    """K5a at [8, 64³, 48 -> 48]: 2.61e11 products over 989 TF/s, against 0.40 GB."""
+    ms, by = chip_smoke.bound(*chip_smoke.conv_work(8 * 64**3, 48, 48))
+    assert by == "operations"
+    assert ms == pytest.approx(0.2638, abs=1e-4)

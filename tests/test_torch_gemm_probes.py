@@ -60,7 +60,7 @@ def _assert_ulp_close(out, ref):
     assert np.all(np.abs(out - ref) <= ulp + 1e-3 * rms), np.abs(out - ref).max()
 
 
-@pytest.mark.parametrize("k,n", [(144, 48), (1296, 48), (96, 128)])
+@pytest.mark.parametrize("k,n", [(144, 48), (1296, 48), (96, 128), (1280, 48), (1296, 128)])
 def test_p1_matches_pallas_mm_and_pallas_mm_t(tools, k, n):
     gemm = tools[0]
     rng = np.random.default_rng(k + n)

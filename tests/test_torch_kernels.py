@@ -19,6 +19,8 @@ from flowtrain_stochastic_interpolation_torch.ops import gemm_probes as gp
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
 from flowtrain_stochastic_interpolation_torch.ops import tap_conv as tc
 from flowtrain_stochastic_interpolation_torch.tools import ab_flash_attention as ab_flash
+from flowtrain_stochastic_interpolation_torch.tools import ab_gemm_conv
+from flowtrain_stochastic_interpolation_torch.tools import variants
 
 HEADS, WIDTH = 4, 128
 
@@ -100,6 +102,15 @@ def test_flash_variants_of_the_ab_tool_still_apply_to_the_source():
     csrc/flash_attention.cu: every substitution must still find its line."""
     for subs, _ in ab_flash.VARIANTS.values():
         assert ab_flash.variant_source(subs) != ab_flash.variant_source([])
+
+
+@pytest.mark.parametrize("source,table", [
+    (gp.SOURCE, ab_gemm_conv.P1_VARIANTS), (tc.SOURCE, ab_gemm_conv.K5A_VARIANTS)])
+def test_gemm_and_conv_variants_of_the_ab_tool_still_apply_to_the_sources(source, table):
+    """tools/ab_gemm_conv.py builds P1 and K5a variants by substituting lines of
+    their sources: each substitution must still find its line."""
+    for subs, _ in table.values():
+        assert variants.variant_source(source, subs) != variants.variant_source(source, [])
 
 
 # ---------------------------------------------------------------------------
@@ -554,6 +565,19 @@ def _conv_reference(x, w, b):
     return y.permute(0, 2, 3, 4, 1)
 
 
+# K5a's box path on a non-cubic volume at batch 2, whose box columns meet every
+# face (Z = 24 is one and a half boxes of 16) and the batch boundary; then the
+# shapes that the C entry point sends to the tile kernel on the same volume:
+# the 18-channel input conv and its data gradient, and f32
+BOX_VOLUME = (2, (8, 16, 24))
+BOX_FORWARD_CASES = (
+    *((*BOX_VOLUME, cin, cout, torch.bfloat16) for cin in (8, 48, 96) for cout in (8, 48, 96, 128)),
+    (*BOX_VOLUME, 18, 48, torch.bfloat16),
+    (*BOX_VOLUME, 48, 18, torch.bfloat16),
+    (*BOX_VOLUME, 48, 48, torch.float32),
+)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch,spatial,cin,cout,dtype", [
     (2, (8, 8, 8), 5, 7, torch.float32),           # odd channels, one element at a time
@@ -563,16 +587,20 @@ def _conv_reference(x, w, b):
     (1, (16, 16, 16), 18, 48, torch.bfloat16),      # ragged K = 486
     (1, (8, 16, 8), 96, 96, torch.bfloat16),
     (1, (8, 8, 8), 48, 256, torch.bfloat16),       # the data gradient's widest output
+    *BOX_FORWARD_CASES,
 ])
 def test_tap_conv_forward_matches_plain_version(cuda, batch, spatial, cin, cout, dtype):
+    """Against the plain version and F.conv3d, and the same on a second call."""
     torch.backends.cudnn.allow_tf32 = False
     x, w, b = _conv_operands(batch, spatial, cin, cout, cuda, seed=cin + cout, dtype=dtype)
     tc.reset_launch_counts()
     out = tc.tap_conv_forward(x, w, b)
+    again = tc.tap_conv_forward(x, w, b)
     want = tc.tap_conv_forward_plain(x, w, b)
     torch.cuda.synchronize()
-    assert tc.launch_counts == {"tap_conv_forward": 1, "tap_conv_weight_grad": 0}
+    assert tc.launch_counts == {"tap_conv_forward": 2, "tap_conv_weight_grad": 0}
     assert out.dtype == dtype and out.shape == (batch, *spatial, cout)
+    assert torch.equal(out, again)
     _assert_ulp_close(out, want, dtype)
     ref = _conv_reference(x.float(), w.float(), b)
     assert _rel_l2(out, ref) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
@@ -656,16 +684,29 @@ def _probe_operands(m, k, n, device, seed=0, grid=None):
     return a, b
 
 
+# P1 at the tools' M plus a ragged last tile of 37 rows: the streaming path at
+# K in {1296, 144} (a ragged last K slice of 16) and N in {8, 48, 128}, then a
+# K that is not a multiple of 8, which the C entry point sends to gemm_p1
+PROBE_M = 524288 + 37
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(1000, 1296, 48), (4096, 144, 128), (300, 100, 37)])
+@pytest.mark.parametrize("m,k,n", [
+    (1000, 1296, 48), (4096, 144, 128), (300, 100, 37),
+    *((PROBE_M, k, n) for k in (1296, 144) for n in (8, 48, 128)),
+    (PROBE_M, 100, 48),
+])
 def test_gemm_probe_matches_plain_version(cuda, m, k, n):
+    """Both layouts against their plain versions, and the same on a second call."""
     a, b = _probe_operands(m, k, n, cuda, seed=k)
     bt = b.T.contiguous()
     gp.reset_launch_counts()
     out, out_t = gp.gemm_probe(a, b), gp.gemm_probe_t(a, bt)
+    again, again_t = gp.gemm_probe(a, b), gp.gemm_probe_t(a, bt)
     torch.cuda.synchronize()
-    assert gp.launch_counts == {"gemm_probe": 1, "gemm_probe_t": 1, "mma_probe": 0}
+    assert gp.launch_counts == {"gemm_probe": 2, "gemm_probe_t": 2, "mma_probe": 0}
     assert out.shape == (m, n) and out_t.shape == (n, m) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again) and torch.equal(out_t, again_t)
     _assert_ulp_close(out, gp.gemm_probe_plain(a, b), torch.bfloat16)
     _assert_ulp_close(out_t, gp.gemm_probe_t_plain(a, bt), torch.bfloat16)
 

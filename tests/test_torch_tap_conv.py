@@ -40,6 +40,10 @@ def _assert_ulp_close(out, ref):
     (2, (8, 8, 8), 5, 7),      # minimum tile, odd channels (tests/test_tap_conv.py)
     (2, (16, 8, 16), 3, 4),    # several x tiles, the 16-deep z chunk (the same)
     (1, (8, 8, 8), 18, 48),    # the 18-channel input class: K = 27·18 is ragged
+    # the widths of the card's box kernel: Z = 24 is one and a half of its
+    # 16-voxel boxes, and 96 -> 96 streams w tap by tap
+    (1, (8, 16, 24), 48, 48),
+    (1, (8, 8, 16), 96, 96),
 ])
 def test_tap_conv_matches_jax_pallas_interpret(batch, spatial, cin, cout, dtype):
     x, w, b = _draw(cin * cout, batch, spatial, cin, cout)
