@@ -14,10 +14,15 @@ Phases, each printed on one flushed line with the seconds since start:
 2. kernel check, each kernel against its plain PyTorch version on the card,
    each case held to a tolerance scaled to its own values:
    - K1 (folded context) and K2 (folded projection) at batch 8 x {262144,
-     32768, 4096} tokens x 128 (the 64³, 32³ and 16³ stages), a ragged
-     4096 + 37, a cross-head logit spread and a 64³ case whose memory tokens
-     carry most of the softmax weight; their general path at b2 x 32768 with
-     8 x 32, 4 x 64 and 2 x 64 heads in bf16 and 4 x 32 in f32;
+     32768, 4096} tokens x 128 (the 64³, 32³ and 16³ stages), ragged 4096 +
+     37 and 262144 + 37 (a last tile partly past n), a cross-head logit
+     spread, a 64³ case whose memory tokens carry most of the softmax weight,
+     token counts under one tile (1 and 5) at b1 and b8, b1 x 262144, and q,
+     k, v as contiguous [B, N, 128] tensors (b8 x 32768, b1 x 4096 + 37, b8 x
+     5) beside the column slices of a [B, N, 384] projection that the rest
+     use; each launched twice with identical outputs; their general path at
+     b2 x 32768 with 8 x 32, 4 x 64 and 2 x 64 heads in bf16 and 4 x 32 in
+     f32;
    - K3 (flash attention), out and lse, at b8 and b4 x 4096 queries x 4100
      keys x 4 heads x 32 (the fa16 stage), a ragged 1024 + 37 queries x
      1024 + 41 keys, a peaked softmax (q x 8), at b2 x 4096 x 4100 with
@@ -32,6 +37,11 @@ Phases, each printed on one flushed line with the seconds since start:
    shapes (CUDA events around 20 back-to-back launches after a warm-up,
    median of 5 such rounds; 2 launches and 3 rounds for a plain version)
    beside the card's bound (bytes, products, or for K3 the exponentials);
+3a. ``tools.ab_linear_attention``: K1 and K2 at the three stages beside the
+   kernels they replaced (FP32 cores), another ring depth, and knock-outs of
+   the exponentials, the products and all but the loads (wrong on purpose),
+   in turns; then ``tools.bench_folded``'s kernel part: each wrapper's host
+   time per call beside its kernels' device time per launch;
 4. backwards: the flash, folded and v1 backwards in bf16 against autograd of
    the f32 plain versions at 16³ b1 (flash, folded) and 32³ b1 (v1);
 4a. wide heads, the fourth slice's repair: K1 and K2 (h = 16 at d = 136, h = 1
@@ -126,6 +136,8 @@ from flowtrain_stochastic_interpolation_torch.ops import gemm_probes as gp
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
 from flowtrain_stochastic_interpolation_torch.ops import tap_conv as tc
 from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
+from flowtrain_stochastic_interpolation_torch.tools import ab_linear_attention as ab_la
+from flowtrain_stochastic_interpolation_torch.tools import bench_folded
 from flowtrain_stochastic_interpolation_torch.tools import bench_gemm as bg
 from flowtrain_stochastic_interpolation_torch.tools import bench_mma_shapes as bms
 from flowtrain_stochastic_interpolation_torch.tools import bench_tap_conv as btc
@@ -334,9 +346,11 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 # Kernel inputs, checks and times
 # ---------------------------------------------------------------------------
 def make_inputs(batch: int, n: int, seed: int, spread: bool = False, mem_shift: float = 0.0,
-                heads: int = HEADS, d: int = HEAD_DIM, dtype: torch.dtype = torch.bfloat16):
+                heads: int = HEADS, d: int = HEAD_DIM, dtype: torch.dtype = torch.bfloat16,
+                contiguous: bool = False):
     """q, k, v as column slices of one [B, N, 3·h·d] projection (as the UNet
-    hands them over), and the folded memory KV [4, h·d]."""
+    hands them over; as contiguous [B, N, h·d] tensors with ``contiguous``),
+    and the folded memory KV [4, h·d]."""
     width = heads * d
     gen = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(batch, n, 3 * width, generator=gen, device="cuda")
@@ -352,6 +366,8 @@ def make_inputs(batch: int, n: int, seed: int, spread: bool = False, mem_shift: 
     qkv = qkv.to(dtype)
     mem = mem.to(dtype)
     q, k, v = qkv[..., :width], qkv[..., width:2 * width], qkv[..., 2 * width:]
+    if contiguous:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return q, k, v, mem[0].contiguous(), mem[1].contiguous()
 
 
@@ -424,25 +440,41 @@ def check_lse(label: str, lse: torch.Tensor, want: torch.Tensor) -> None:
           f"flash_attention {label}: lse outside the tolerance")
 
 
-def phase_kernel_check():
+def check_folded(worst: dict) -> None:
+    """K1 and K2 on 4 x 32 bf16 heads against their plain versions, each
+    launched twice with identical outputs."""
     cases = [(f"b{BATCH} x {n}", BATCH, n, {}) for n in STAGE_TOKENS]
     cases += [(f"b{BATCH} x 4096+37 ragged", BATCH, 4096 + 37, {}),
+              (f"b{BATCH} x {STAGE_TOKENS[0]}+37 ragged", BATCH, STAGE_TOKENS[0] + 37, {}),
               (f"b{BATCH} x 4096 cross-head spread", BATCH, 4096, dict(spread=True)),
               (f"b{BATCH} x {STAGE_TOKENS[0]} memory-heavy (mem_k + {MEM_SHIFT:g})", BATCH,
                STAGE_TOKENS[0], dict(mem_shift=MEM_SHIFT))]
-    worst = {name: 0.0 for name in KERNELS}
+    # the 4 x 32 kernels' edges: fewer tokens than one tile, batch 1, and
+    # contiguous [B, N, 128] operands
+    cases += [(f"b{b} x {n}", b, n, {}) for b in (1, BATCH) for n in (1, 5)]
+    cases += [(f"b1 x {STAGE_TOKENS[0]}", 1, STAGE_TOKENS[0], {})]
+    cases += [(f"b{b} x {label} contiguous", b, n, dict(contiguous=True))
+              for b, n, label in ((BATCH, STAGE_TOKENS[1], STAGE_TOKENS[1]),
+                                  (1, 4096 + 37, "4096+37 ragged"), (BATCH, 5, 5))]
     for i, (label, b, n, options) in enumerate(cases):
         q, k, v, mk, mv = make_inputs(b, n, seed=i, **options)
         ctx_plain = la.folded_context_plain(k, v, mk, mv, HEADS)
         ctx = la.folded_context(k, v, mk, mv, HEADS)
+        again = la.folded_context(k, v, mk, mv, HEADS)
         out_plain = la.folded_project_plain(q, ctx_plain, HEADS)
         out = la.folded_project(q, ctx_plain, HEADS)
+        out_again = la.folded_project(q, ctx_plain, HEADS)
         torch.cuda.synchronize()
-        for name, got, want in (("folded_context", ctx, ctx_plain),
-                                ("folded_project", out, out_plain)):
+        for name, got, second, want in (("folded_context", ctx, again, ctx_plain),
+                                        ("folded_project", out, out_again, out_plain)):
             worst[name] = max(worst[name], compare(name, label, got, want))
-        del q, k, v, ctx, ctx_plain, out, out_plain
+            check(torch.equal(got, second), f"{name} {label}: a second launch differs")
+        del q, k, v, ctx, again, ctx_plain, out, out_again, out_plain
 
+
+def phase_kernel_check():
+    worst = {name: 0.0 for name in KERNELS}
+    check_folded(worst)
     n, m = FLASH_TOKENS
     flash_cases = [(f"b{b} x {n} q x {m} kv", b, n, m, 1.0, HEAD_DIM)
                    for b in (BATCH, TRAIN_MICRO_BATCH)]
@@ -542,6 +574,19 @@ def bound(bytes_moved: float, flops: float, peak_flop_per_s: float = PEAK_BF16_F
     return max(times, key=lambda term: term[0])
 
 
+def context_work(batch: int, n: int):
+    """K1's bytes (k and v once each, bf16; the memory tokens; the f32 ctx),
+    products (the four diagonal blocks) and exponentials (one per token and column)."""
+    return (2 * batch * n * WIDTH * 2 + 2 * N_MEM * WIDTH * 2 + batch * WIDTH * WIDTH * 4,
+            2.0 * batch * n * WIDTH * HEAD_DIM, batch * (n + N_MEM) * WIDTH)
+
+
+def project_work(batch: int, n: int):
+    """K2's bytes (q in, out, bf16; the f32 ctx), products and exponentials."""
+    return (2 * batch * n * WIDTH * 2 + batch * WIDTH * WIDTH * 4,
+            2.0 * batch * n * WIDTH * HEAD_DIM, batch * n * WIDTH)
+
+
 def probe_work(m: int, k: int, n: int):
     """P1's bytes (A, B and the output once each, bf16) and products."""
     return 2 * (m * k + k * n + m * n), 2.0 * m * k * n
@@ -574,18 +619,15 @@ def phase_kernel_times():
     for n in STAGE_TOKENS:
         q, k, v, mk, mv = make_inputs(BATCH, n, seed=100)
         ctx = la.folded_context_plain(k, v, mk, mv, HEADS)
-        products = 2.0 * BATCH * n * WIDTH * (WIDTH // HEADS)
         label = f"b{BATCH} x {n}"
+        nbytes, flops, exps = context_work(BATCH, n)
         rows[("folded_context", BATCH, n)] = timed_row(
             "folded_context", label, lambda: la.folded_context(k, v, mk, mv, HEADS),
-            lambda: la.folded_context_plain(k, v, mk, mv, HEADS),
-            2 * BATCH * n * WIDTH * 2 + 2 * N_MEM * WIDTH * 2 + BATCH * WIDTH * WIDTH * 4,
-            products, exps=BATCH * (n + N_MEM) * WIDTH)
+            lambda: la.folded_context_plain(k, v, mk, mv, HEADS), nbytes, flops, exps=exps)
+        nbytes, flops, exps = project_work(BATCH, n)
         rows[("folded_project", BATCH, n)] = timed_row(
             "folded_project", label, lambda: la.folded_project(q, ctx, HEADS),
-            lambda: la.folded_project_plain(q, ctx, HEADS),
-            BATCH * n * WIDTH * 2 + BATCH * WIDTH * WIDTH * 4 + BATCH * n * WIDTH * 2, products,
-            exps=BATCH * n * WIDTH)
+            lambda: la.folded_project_plain(q, ctx, HEADS), nbytes, flops, exps=exps)
         del q, k, v, ctx
 
     n, m = FLASH_TOKENS
@@ -1349,6 +1391,10 @@ def main() -> int:
 
     worst = phase_kernel_check()
     rows = phase_kernel_times()
+    say("ab_linear_attention", "K1 and K2 variants in turns")
+    ab_la.main()
+    say("bench_folded", "K1 and K2 through their wrappers: host and device time")
+    bench_folded.kernels(torch.device("cuda"))
     headline = {name: rows[(name, BATCH, FLASH_TOKENS[0] if name == "flash_attention"
                             else STAGE_TOKENS[0])] for name in (*la.launch_counts, *fa.launch_counts)}
     phase_backwards()

@@ -366,36 +366,13 @@ gemm_stream(const __grid_constant__ CUtensorMap a_map, const bf16* __restrict__ 
   }
 }
 
-// The TMA's encoder, cuTensorMapEncodeTiled, looked up through the runtime (no link to
-// libcuda).
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [M, K] bf16 as a tensor map of [128, 64] boxes with the 128-byte swizzle,
+// A [M, K] bf16 as a tensor map of [160, 64] boxes with the 128-byte swizzle,
 // zeros outside it. Returns 0, or a CUDA error code.
 int a_tensor_map(CUtensorMap* map, const void* a, int M, int K) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
-  const cuuint32_t box[2] = {stream::TK, stream::TM}, unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  const cuuint32_t box[2] = {stream::TK, stream::TM};
+  return mma_async::bf16_tensor_map(map, a, 2, dims, strides, box);
 }
 
 // The streaming path's shapes: K and N multiples of 8, N <= 128, B as [K, N]

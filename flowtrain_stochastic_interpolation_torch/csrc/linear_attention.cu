@@ -9,7 +9,8 @@
 // The specialisation works on the head-folded layout [B, N, h*d] with h = 4
 // heads of d = 32, so h*d = 128: the layout of the UNet's to_qkv projection,
 // read in place through a token stride (q, k and v are column slices of one
-// [B, N, 384] tensor; nothing is copied to make them contiguous).
+// [B, N, 384] tensor; nothing is copied to make them contiguous). A
+// contiguous [B, N, 128] tensor is read the same way.
 //
 // K1 replaces flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py
 // _folded_context_kernel (called from _folded_fwd):
@@ -27,28 +28,55 @@
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): at the flagship's largest
 // call, 64^3 tokens x batch 8, K1 reads k and v (2 x 537 MB) and K2 reads q
 // and writes out (2 x 537 MB). Each moves about 1.07 GB, 0.32 ms at the
-// memory rate, against 17 GFLOP of products (0.02 ms at the bf16 rate): both
-// are memory-bound.
+// memory rate, against 17 GFLOP of products (0.02 ms at the bf16 rate) and
+// 2.7e8 exponentials (0.07 ms on the special-function units): both are bound
+// by bytes, and the design is about keeping the stream at the memory rate
+// with the products and exponentials hidden under it.
 //
-// What the design does about it. Each kernel reads its large inputs exactly
-// once with 16-byte (K1) or 8-byte (K2) loads along the 128-wide rows, and
-// keeps every intermediate (exp(k), the group softmax of q) in shared memory.
-// The TPU kernel carries the online softmax across a sequential grid; on the
-// card the blocks run in parallel, so K1 is two launches: a partial pass over
-// (token chunk, batch) that keeps a running per-column max m, sum s and the
-// four per-head diagonal [32, 32] blocks (the off-diagonal blocks are zeroed
-// anyway, which saves 4x the products), and a combine pass that seeds with the
-// memory tokens and merges the chunks with the exp(m_c - M) rescale. The
-// partials are 17 KB per chunk of 1024 tokens, written once and read once:
-// 7% on top of the chunk's 512 KB of k and v.
-// K2 keeps the four diagonal blocks of ctx in shared memory for the whole
-// block and walks many row tiles, so ctx is read once per block.
-// The products run on the FP32 cores in this first version; tensor cores and
-// TMA loads are later work.
+// What the design does about it (namespace k12 and the two kernels below):
+//   * The streams come by the Tensor Memory Accelerator. A producer warp asks
+//     for each tile of 64 (K1) or 128 (K2) tokens x 128 columns as two boxes
+//     of 64 columns (128-byte rows, the 128-byte swizzle, so ldmatrix meets
+//     no bank conflict) of a 3-D tensor map over (column, token, batch) that
+//     reads the projection's column slice in place; tokens past n arrive as
+//     zeros. A ring of stages in shared memory, each counted on an mbarrier
+//     (full: the TMA's bytes; empty: the consumer warps' releases), keeps the
+//     next tiles in flight while the 8 consumer warps work; no __syncthreads
+//     paces the stream. The operands stay bf16 in shared memory.
+//   * The products run on the tensor cores (mma.sync.m16n8k16, bf16 operands,
+//     f32 accumulation), which is exactly the TPU kernels' bf16 x bf16 -> f32.
+//     The softmax runs on the fragments: p is computed in f32 in the A
+//     registers and rounded to bf16 there; it never touches shared memory.
+//   * K1: consumer warp w owns the 16 k columns 16w.. (head w / 2). A = p^T
+//     comes through ldmatrix.trans from the k tile; each tile's column max is
+//     the max of the thread's fragment values and two quad shuffles; the
+//     running max and sum update in registers, the [16, 32] f32 accumulator
+//     of the head's block is rescaled by exp(m_old - m_new), and B = v comes
+//     through ldmatrix.trans. The TPU kernel carries the online softmax
+//     across a sequential grid; on the card the blocks run in parallel, so K1
+//     is two launches: a persistent partial pass, one block per contiguous
+//     token range of one batch item (as many ranges as fill the card once),
+//     that writes each range's m, s and four diagonal [32, 32] blocks, and a
+//     combine that seeds with the memory tokens and merges the ranges in
+//     order with the exp(m_c - M) rescale (two launches give identical
+//     outputs). At 64^3 b8 that is 264 slots of 17 KB, 0.4% of the stream.
+//   * K2: a persistent grid walks 128-row tiles of each batch item with ctx's
+//     four diagonal blocks staged once per block as bf16 in shared memory;
+//     consumer warp w owns rows 16w.. of each tile and works head by head: q's
+//     A fragments through ldmatrix, the group max and sum from the fragment
+//     and quad shuffles, p = e / sum * d^-1/2 rounded to bf16 in the A
+//     registers, 8 mma against ctx_h's B fragments (ldmatrix.trans). The bf16
+//     output goes into the warp's own rows of the stage it read (q's head h
+//     columns are consumed before head h's output lands there), then out in
+//     16-byte runs; rows past n are never written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "mma_async.cuh"
 
 namespace {
 
@@ -56,8 +84,6 @@ constexpr int HD = 128;      // folded width h*d
 constexpr int DH = 32;       // head width d
 constexpr int NH = HD / DH;  // heads
 constexpr int THREADS = 256;
-constexpr int K1_TILE = 32;  // tokens staged in shared memory per step of K1
-constexpr int K2_ROWS = 32;  // rows of q per tile of K2
 constexpr int COMBINE_ROWS = 8;  // rows of one head's block per combine block
 
 __device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
@@ -76,139 +102,210 @@ __device__ __forceinline__ void unpack8(const uint4 raw, float* f) {
   }
 }
 
+namespace k12 {
+constexpr int HALF = 64;                     // columns of one TMA box: a 128-byte row
+constexpr int CONSUMERS = 8;                 // consumer warps
+constexpr int NTHREADS = 32 * CONSUMERS + 32;  // + the producer warp
+constexpr int CTX_TILE = 64, CTX_STAGES = 3;   // K1: tokens per stage, stages
+constexpr int CTX_BOX = CTX_TILE * HALF;       // elements of one box
+constexpr int CTX_STAGE = 4 * CTX_BOX;         // k's two halves, then v's
+constexpr int PROJ_TILE = 16 * CONSUMERS, PROJ_STAGES = 3;  // K2: rows per stage, stages
+constexpr int PROJ_BOX = PROJ_TILE * HALF;
+constexpr int PROJ_STAGE = 2 * PROJ_BOX;       // q's two halves
+constexpr int LDC = DH + 8;                    // a staged ctx row: 5 16-byte units
+constexpr int ALIGN = 1024;                    // the swizzled boxes' alignment
+constexpr int CTX_SMEM = ALIGN + CTX_STAGES * CTX_STAGE * 2;
+constexpr int PROJ_SMEM = ALIGN + (PROJ_STAGES * PROJ_STAGE + NH * DH * LDC) * 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// the ring in dynamic shared memory, aligned for the 128-byte swizzle
+__device__ __forceinline__ __nv_bfloat16* ring_base(unsigned char* raw) {
+  const uint32_t base = mma_async::smem_addr(raw);
+  return reinterpret_cast<__nv_bfloat16*>(raw + (ALIGN - base % ALIGN) % ALIGN);
+}
+
+// 16-byte unit u of row r of a box as the 128-byte swizzle lays it out
+__device__ __forceinline__ int swz(int r, int u) { return r * HALF + ((u ^ (r & 7)) << 3); }
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+}  // namespace k12
+
 // ---------------------------------------------------------------------------
-// K1, pass 1: per (chunk, batch) running column max, sum and diagonal blocks.
-// Thread t owns rows d0..d0+3 and columns e0..e0+3 of head t/64's block, and,
-// for the column reductions, column t%128 over half t/128 of each tile.
+// K1, pass 1: block (r, b) walks tiles r * range_tiles .. of batch item b and
+// writes slot b * gridDim.x + r: the running column max m and sum s of its
+// tokens and the four diagonal [32, 32] blocks of sum p^T v, with p = exp(k - m).
+// A range with no token keeps m = -inf, s = 0 and ctx = 0, which the combine
+// weighs as 0.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-folded_context_partial(const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       long long k_ld, long long v_ld, long long k_bs, long long v_bs,
-                       int n, int chunk, int n_chunks,
+__global__ void __launch_bounds__(k12::NTHREADS, 2)
+folded_context_partial(const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, int n, int range_tiles,
                        float* __restrict__ part_m, float* __restrict__ part_s,
                        float* __restrict__ part_ctx) {
-  const int c = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const int n0 = c * chunk;
-  const int n1 = min(n, n0 + chunk);
-  const __nv_bfloat16* kb = k + (long long)b * k_bs;
-  const __nv_bfloat16* vb = v + (long long)b * v_bs;
+  using namespace k12;
+  using namespace mma_async;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[CTX_STAGES], empty[CTX_STAGES];
+  __nv_bfloat16* ring = ring_base(smem_raw);
+  const int r = blockIdx.x, b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = r * range_tiles;
+  const int count = max(0, min(range_tiles, (n + CTX_TILE - 1) / CTX_TILE - first));
 
-  __shared__ __align__(16) float p_s[K1_TILE][HD];  // k, then bf16(exp(k - m))
-  __shared__ __align__(16) float v_s[K1_TILE][HD];
-  __shared__ float red[2][HD];
-  __shared__ float m_run[HD], s_run[HD], alpha_s[HD];
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < CTX_STAGES; ++j) {
+      mbar_init(&full[j], 1);  // the producer's arrival with the boxes' bytes
+      mbar_init(&empty[j], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  if (t < HD) {
-    m_run[t] = neg_inf();
-    s_run[t] = 0.f;
+  if (warp == CONSUMERS) {  // the producer
+    if (lane == 0) {
+      for (int s = 0; s < count; ++s) {
+        const int j = s % CTX_STAGES, pass = s / CTX_STAGES;
+        if (pass > 0) mbar_wait(&empty[j], (pass - 1) & 1);  // the consumers are done with j
+        __nv_bfloat16* st = ring + j * CTX_STAGE;
+        const int tok = (first + s) * CTX_TILE;
+        mbar_expect_tx(&full[j], CTX_STAGE * 2);
+        tma_load_3d(st, &k_map, &full[j], 0, tok, b);
+        tma_load_3d(st + CTX_BOX, &k_map, &full[j], HALF, tok, b);
+        tma_load_3d(st + 2 * CTX_BOX, &v_map, &full[j], 0, tok, b);
+        tma_load_3d(st + 3 * CTX_BOX, &v_map, &full[j], HALF, tok, b);
+      }
+    }
+    return;
   }
 
-  const int h = t >> 6, local = t & 63;
-  const int d0 = (local >> 3) * 4, e0 = (local & 7) * 4;
+  // Fragments (mma_async.cuh's layout, g = lane / 4, q = lane % 4). A = p^T:
+  // a0, a2 hold column 16 warp + g, a1, a3 column 16 warp + g + 8, at tokens
+  // 2q, 2q + 1 (+ 8 for a2, a3) of the k-step; ldmatrix matrix mi takes
+  // columns + 8 (mi & 1) and tokens + 8 (mi >> 1) of the stored k tile. B = v:
+  // matrix mi takes tokens + 8 (mi & 1) and columns + 8 (mi >> 1) of a pair
+  // of n8 tiles of the head's 32 columns.
+  const int g = lane >> 2, q = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int h = warp >> 1;
+  const int k_box = (warp >> 2) * CTX_BOX, a_unit = 2 * (warp & 3) + (mi & 1);
+  const int a_tok = mr + 8 * (mi >> 1);
+  const int v_box = (2 + (h >> 1)) * CTX_BOX, b_unit = 4 * (h & 1) + (mi >> 1);
+  const int b_tok = mr + 8 * (mi & 1);
+
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m_run[2] = {neg_inf(), neg_inf()}, s_run[2] = {0.f, 0.f};  // columns g, g + 8
 
-  const int col = t & (HD - 1), half = t >> 7;
-  constexpr int HALF_ROWS = K1_TILE / 2;
+  for (int s = 0; s < count; ++s) {
+    const int j = s % CTX_STAGES;
+    mbar_wait(&full[j], (s / CTX_STAGES) & 1);  // tile s has landed
+    const __nv_bfloat16* st = ring + j * CTX_STAGE;
 
-  for (int base = n0; base < n1; base += K1_TILE) {
-    const int rows = min(K1_TILE, n1 - base);
-    __syncthreads();  // the previous tile is consumed
-    // Rows past the chunk's end are never read: they are filled with
-    // k = -inf (so exp gives 0) and v = 0.
-    for (int i = t; i < K1_TILE * HD / 8; i += THREADS) {
-      const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
-      float kf[8], vf[8];
-      if (r < rows) {
-        const uint4 kraw = *reinterpret_cast<const uint4*>(kb + (long long)(base + r) * k_ld + c8);
-        const uint4 vraw = *reinterpret_cast<const uint4*>(vb + (long long)(base + r) * v_ld + c8);
-        unpack8(kraw, kf);
-        unpack8(vraw, vf);
-      } else {
+    uint32_t a[4][4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          kf[j] = neg_inf();
-          vf[j] = 0.f;
-        }
+    for (int ks = 0; ks < 4; ++ks)
+      ldmatrix_x4_trans(a[ks], st + k_box + swz(16 * ks + a_tok, a_unit));
+    float x[4][4][2];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[ks][i][0] = low_f32(a[ks][i]);
+        x[ks][i][1] = high_f32(a[ks][i]);
       }
-      float4* pd = reinterpret_cast<float4*>(&p_s[r][c8]);
-      float4* vd = reinterpret_cast<float4*>(&v_s[r][c8]);
-      pd[0] = make_float4(kf[0], kf[1], kf[2], kf[3]);
-      pd[1] = make_float4(kf[4], kf[5], kf[6], kf[7]);
-      vd[0] = make_float4(vf[0], vf[1], vf[2], vf[3]);
-      vd[1] = make_float4(vf[4], vf[5], vf[6], vf[7]);
-    }
-    __syncthreads();
-
-    float mx = neg_inf();
+    const int tok0 = (first + s) * CTX_TILE;
+    if (tok0 + CTX_TILE > n) {  // the last tile: tokens past n (zeros from the TMA) are -inf
 #pragma unroll
-    for (int r = 0; r < HALF_ROWS; ++r) mx = fmaxf(mx, p_s[half * HALF_ROWS + r][col]);
-    red[half][col] = mx;
-    __syncthreads();
-    if (t < HD) {
-      const float m_new = fmaxf(m_run[t], fmaxf(red[0][t], red[1][t]));
-      alpha_s[t] = expf(m_run[t] - m_new);  // 0 on the first tile
-      m_run[t] = m_new;
-    }
-    __syncthreads();
-
-    {
-      const float m_new = m_run[col];
-      float s = 0.f;
+      for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-      for (int r = 0; r < HALF_ROWS; ++r) {
-        const int rr = half * HALF_ROWS + r;
-        const float p = expf(p_s[rr][col] - m_new);
-        s += p;                         // the sum takes exp in f32
-        p_s[rr][col] = bf16_round(p);   // the product takes it in bf16
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (tok0 + 16 * ks + 8 * (i >> 1) + 2 * q + e >= n) x[ks][i][e] = neg_inf();
+    }
+
+    float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i & 1] = fmaxf(mx[i & 1], fmaxf(x[ks][i][0], x[ks][i][1]));
+    float shift[2], alpha[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float m_new = fmaxf(m_run[c], quad_max(mx[c]));
+      // a column with no finite key so far keeps m = -inf: shift by 0 there,
+      // so that its exponentials are 0 and never exp(-inf - (-inf)) = NaN
+      shift[c] = m_new == neg_inf() ? 0.f : m_new * LOG2E;
+      alpha[c] = exp2_approx(fmaf(m_run[c], LOG2E, -shift[c]));  // 0 on the first tile
+      m_run[c] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[0];
+      acc[i][2] *= alpha[1];
+      acc[i][3] *= alpha[1];
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p0 = exp2_approx(fmaf(x[ks][i][0], LOG2E, -shift[i & 1]));
+        const float p1 = exp2_approx(fmaf(x[ks][i][1], LOG2E, -shift[i & 1]));
+        psum[i & 1] += p0 + p1;        // the sum takes exp in f32
+        a[ks][i] = pack_bf16(p0, p1);  // the product takes it in bf16
       }
-      red[half][col] = s;
-    }
-    __syncthreads();
-    if (t < HD) s_run[t] = s_run[t] * alpha_s[t] + red[0][t] + red[1][t];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) s_run[c] = fmaf(s_run[c], alpha[c], psum[c]);
 
-    float a[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = alpha_s[h * DH + d0 + i];
+    for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= a[i];
-
-    for (int r = 0; r < rows; ++r) {
-      const float4 pv = *reinterpret_cast<const float4*>(&p_s[r][h * DH + d0]);
-      const float4 vv = *reinterpret_cast<const float4*>(&v_s[r][h * DH + e0]);
-      // v was bf16 in memory, so it is already a bf16 value
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pa[i], va[j], acc[i][j]);
-    }
+      for (int p = 0; p < 2; ++p) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, st + v_box + swz(16 * ks + b_tok, b_unit + 2 * p));
+        mma(acc[2 * p], a[ks], bv[0], bv[1]);
+        mma(acc[2 * p + 1], a[ks], bv[2], bv[3]);
+      }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j]);  // this warp is done with stage j
   }
-  __syncthreads();
 
-  const long long slot = (long long)b * n_chunks + c;
-  if (t < HD) {
-    part_m[slot * HD + t] = m_run[t];
-    part_s[slot * HD + t] = s_run[t];
+  // each lane summed its own tokens; the quad holds the column's four parts
+  const long long slot = (long long)b * gridDim.x + r;
+  const int col = 16 * warp + g;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const float s_col = quad_sum(s_run[c]);
+    if (q == 0) {
+      part_m[slot * HD + col + 8 * c] = m_run[c];
+      part_s[slot * HD + col + 8 * c] = s_col;
+    }
   }
   float* pc = part_ctx + (slot * NH + h) * DH * DH;
+  const int d0 = 16 * (warp & 1) + g;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(&pc[(d0 + i) * DH + e0]) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int i = 0; i < 4; ++i) {
+    const int e = 8 * i + 2 * q;
+    *reinterpret_cast<float2*>(&pc[d0 * DH + e]) = make_float2(acc[i][0], acc[i][1]);
+    *reinterpret_cast<float2*>(&pc[(d0 + 8) * DH + e]) = make_float2(acc[i][2], acc[i][3]);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// K1, pass 2: per (head, 8-row slab, batch) merge of the chunks, seeded with
-// the memory tokens, divided by the column sums; writes the full [128, 128]
-// rows with zeros off the head's diagonal block.
+// K1, pass 2: per (head, 8-row slab, batch) merge of the ranges' slots in
+// order, seeded with the memory tokens, divided by the column sums; writes the
+// full [128, 128] rows with zeros off the head's diagonal block.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(THREADS)
 folded_context_combine(const float* __restrict__ part_m, const float* __restrict__ part_s,
@@ -250,90 +347,144 @@ folded_context_combine(const float* __restrict__ part_m, const float* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// K2: out = groupsoftmax(q) * scale @ ctx, per (row tile, batch). The block
-// stages ctx's diagonal blocks once (rounded to bf16), then walks row tiles.
+// K2: out = groupsoftmax(q) * scale @ ctx. Block (x, b) walks the 128-row
+// tiles x, x + gridDim.x, ... of batch item b; ctx's diagonal blocks are
+// staged once, rounded to bf16.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-folded_project(const __nv_bfloat16* __restrict__ q, long long q_ld, long long q_bs,
-               const float* __restrict__ ctx, __nv_bfloat16* __restrict__ out,
-               int n, int n_tiles, float scale) {
-  const int b = blockIdx.y, t = threadIdx.x;
-  const int warp = t >> 5, lane = t & 31;
+__global__ void __launch_bounds__(k12::NTHREADS, 2)
+folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restrict__ ctx,
+               __nv_bfloat16* __restrict__ out, int n, float scale) {
+  using namespace k12;
+  using namespace mma_async;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[PROJ_STAGES], empty[PROJ_STAGES];
+  __nv_bfloat16* ring = ring_base(smem_raw);
+  __nv_bfloat16* ctx_s = ring + PROJ_STAGES * PROJ_STAGE;  // [NH][DH][LDC]
+  const int b = blockIdx.y, t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int tiles = (n + PROJ_TILE - 1) / PROJ_TILE;
+  const int mine = tiles > static_cast<int>(blockIdx.x)
+                       ? (tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1 : 0;
 
-  __shared__ __align__(16) float ctx_s[NH][DH][DH];
-  // p padded by one float per head so the four heads' reads fall in four banks
-  __shared__ float p_s[K2_ROWS][NH * (DH + 1)];
+  if (t == 0) {
+    for (int j = 0; j < PROJ_STAGES; ++j) {
+      mbar_init(&full[j], 1);
+      mbar_init(&empty[j], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  const float* cb = ctx + (long long)b * HD * HD;
-  for (int i = t; i < NH * DH * DH; i += THREADS) {
-    const int hh = i / (DH * DH), d = (i / DH) % DH, e = i % DH;
-    ctx_s[hh][d][e] = bf16_round(cb[(hh * DH + d) * HD + hh * DH + e]);
+  if (warp == CONSUMERS) {  // the producer
+    if (lane == 0) {
+      for (int s = 0; s < mine; ++s) {
+        const int j = s % PROJ_STAGES, pass = s / PROJ_STAGES;
+        if (pass > 0) mbar_wait(&empty[j], (pass - 1) & 1);
+        __nv_bfloat16* st = ring + j * PROJ_STAGE;
+        const int row0 = (blockIdx.x + s * gridDim.x) * PROJ_TILE;
+        mbar_expect_tx(&full[j], PROJ_STAGE * 2);
+        tma_load_3d(st, &q_map, &full[j], 0, row0, b);
+        tma_load_3d(st + PROJ_BOX, &q_map, &full[j], HALF, row0, b);
+      }
+    }
+    return;
   }
 
-  const __nv_bfloat16* qb = q + (long long)b * q_bs;
+  const float* cb = ctx + (long long)b * HD * HD;
+  for (int i = t; i < NH * DH * DH; i += 32 * CONSUMERS) {
+    const int hh = i / (DH * DH), d = (i / DH) % DH, e = i % DH;
+    ctx_s[(hh * DH + d) * LDC + e] = __float2bfloat16(cb[(hh * DH + d) * HD + hh * DH + e]);
+  }
+  bar_sync(1, 32 * CONSUMERS);  // ctx_s is staged
+
+  // Fragments: A = p, rows 16 warp + g (a0, a2) and + 8 (a1, a3); ldmatrix
+  // matrix mi takes rows + 8 (mi & 1) and columns + 8 (mi >> 1) of a k16 step.
+  // B = ctx_h [d, e]: matrix mi takes d + 8 (mi & 1) and e + 8 (mi >> 1) of a
+  // pair of n8 tiles.
+  const int g = lane >> 2, q = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int row_w = 16 * warp, a_row = row_w + mr + 8 * (mi & 1);
+  const int b_off = (mr + 8 * (mi & 1)) * LDC + 8 * (mi >> 1);
   __nv_bfloat16* ob = out + (long long)b * n * HD;
-  const int cg = t & 31, rg = t >> 5;   // output: columns cg*4.., rows rg*4..
-  const int oh = cg >> 3, oe = (cg & 7) * 4;
-  constexpr int ROWS_PER_WARP = K2_ROWS / (THREADS / 32);
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * K2_ROWS;
-    __syncthreads();  // ctx_s is staged, or the previous tile is consumed
-    // group softmax: one warp per row, lane l holds columns 4l..4l+3, so the
-    // eight lanes of a head group reduce among themselves
+  for (int s = 0; s < mine; ++s) {
+    const int j = s % PROJ_STAGES;
+    mbar_wait(&full[j], (s / PROJ_STAGES) & 1);
+    __nv_bfloat16* st = ring + j * PROJ_STAGE;
+    const int row0 = (blockIdx.x + s * gridDim.x) * PROJ_TILE;
 #pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      const int r = warp * ROWS_PER_WARP + i;
-      if (row0 + r >= n) break;
-      const uint2 raw = *reinterpret_cast<const uint2*>(qb + (long long)(row0 + r) * q_ld + lane * 4);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 x01 = __bfloat1622float2(h2[0]);
-      const float2 x23 = __bfloat1622float2(h2[1]);
-      float x[4] = {x01.x, x01.y, x23.x, x23.y};
-      float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+    for (int h = 0; h < NH; ++h) {
+      __nv_bfloat16* qh = st + (h >> 1) * PROJ_BOX;  // head h: units 4 (h % 2).. of its box
+      uint32_t a[2][4];
 #pragma unroll
-      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float sum = 0.f;
+      for (int ks = 0; ks < 2; ++ks)
+        ldmatrix_x4(a[ks], qh + swz(a_row, 4 * (h & 1) + 2 * ks + (mi >> 1)));
+      float x[2][4][2];
+      float mx[2] = {neg_inf(), neg_inf()};  // rows g, g + 8
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        x[j] = expf(x[j] - mx);
-        sum += x[j];
-      }
+      for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const int hh = lane >> 3, dd = (lane & 7) * 4;
+        for (int i = 0; i < 4; ++i) {
+          x[ks][i][0] = low_f32(a[ks][i]);
+          x[ks][i][1] = high_f32(a[ks][i]);
+          mx[i & 1] = fmaxf(mx[i & 1], fmaxf(x[ks][i][0], x[ks][i][1]));
+        }
+      float shift[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p_s[r][hh * (DH + 1) + dd + j] = bf16_round((x[j] / sum) * scale);
-    }
-    __syncthreads();
+      for (int c = 0; c < 2; ++c) shift[c] = quad_max(mx[c]) * LOG2E;  // the head's max
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            x[ks][i][e] = exp2_approx(fmaf(x[ks][i][e], LOG2E, -shift[i & 1]));
+            sum[i & 1] += x[ks][i][e];
+          }
+      float f[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) f[c] = scale / quad_sum(sum[c]);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[ks][i] = pack_bf16(x[ks][i][0] * f[i & 1], x[ks][i][1] * f[i & 1]);
 
-    float acc[4][4];
+      float acc[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float4 cv = *reinterpret_cast<const float4*>(&ctx_s[oh][d][oe]);
-      const float ca[4] = {cv.x, cv.y, cv.z, cv.w};
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+      const __nv_bfloat16* ch = ctx_s + h * DH * LDC + b_off;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          uint32_t bc[4];
+          ldmatrix_x4_trans(bc, ch + 16 * ks * LDC + 16 * p);
+          mma(acc[2 * p], a[ks], bc[0], bc[1]);
+          mma(acc[2 * p + 1], a[ks], bc[2], bc[3]);
+        }
+      __syncwarp();  // every lane has read head h's q: its output may take its place
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float p = p_s[rg * 4 + i][oh * (DH + 1) + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p, ca[j], acc[i][j]);
+        const int u = 4 * (h & 1) + i;
+        *reinterpret_cast<uint32_t*>(qh + swz(row_w + g, u) + 2 * q) =
+            pack_bf16(acc[i][0], acc[i][1]);
+        *reinterpret_cast<uint32_t*>(qh + swz(row_w + g + 8, u) + 2 * q) =
+            pack_bf16(acc[i][2], acc[i][3]);
       }
     }
+    __syncwarp();
+    // the warp's 16 output rows, 16-byte runs: two rows of 256 bytes per step
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + rg * 4 + i;
-      if (row >= n) break;
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[i][0], acc[i][1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[i][2], acc[i][3]);
-      uint2 packed;
-      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(ob + (long long)row * HD + cg * 4) = packed;
+    for (int i = 0; i < 8; ++i) {
+      const int rr = 2 * i + (lane >> 4), u = lane & 15, row = row0 + row_w + rr;
+      if (row < n)
+        *reinterpret_cast<uint4*>(ob + (long long)row * HD + 8 * u) =
+            *reinterpret_cast<const uint4*>(st + (u >> 3) * PROJ_BOX + swz(row_w + rr, u & 7));
     }
+    fence_proxy_async();  // these accesses before the TMA refills the stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j]);
   }
 }
 
@@ -918,46 +1069,132 @@ int launch_project_wide(const void* q, long long q_bs, long long q_ts, long long
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Launching K1 and K2 on 4 x 32 bf16
+// ---------------------------------------------------------------------------
+constexpr int MAX_DEVICES = 64;
+
+// Blocks of `kernel` resident on the card at once (SMs x blocks per SM at
+// `smem` bytes of dynamic shared memory), found once per device into the
+// caller's `cache`, after the kernel is allowed that much shared memory.
+// Returns 0 or a CUDA error code.
+int card_blocks(const void* kernel, int smem, int (&cache)[MAX_DEVICES], int* blocks) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < MAX_DEVICES && cache[device]) {
+    *blocks = cache[device];
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, k12::NTHREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = sms * std::max(per_sm, 1);
+  if (device < MAX_DEVICES) cache[device] = *blocks;
+  return 0;
+}
+
+// [batch, n, 128] bf16 read through its token and batch strides (elements)
+// as a tensor map over (column, token, batch) in boxes of 64 columns x `rows`
+// tokens. Returns 0 or a CUDA error code.
+int folded_map(CUtensorMap* map, const void* t, long long ld, long long bs, int batch, int n,
+               int rows) {
+  // a batch of one never steps along its batch stride, which may be anything
+  const long long batch_stride = batch > 1 ? bs : ld * n;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(batch_stride) * 2};
+  const cuuint32_t box[3] = {k12::HALF, static_cast<cuuint32_t>(rows), 1};
+  return mma_async::bf16_tensor_map(map, t, 3, dims, strides, box);
+}
+
+// K1's token ranges: each block walks range_tiles tiles of 64 tokens of one
+// batch item, and the ranges of all batch items fill the card once.
+int context_ranges(int batch, int n, int* range_tiles, int* slots) {
+  static int cache[MAX_DEVICES] = {};
+  int blocks = 0;
+  const int err = card_blocks(reinterpret_cast<const void*>(folded_context_partial),
+                              k12::CTX_SMEM, cache, &blocks);
+  if (err) return err;
+  const long long tiles = (n + k12::CTX_TILE - 1) / k12::CTX_TILE;
+  const long long per_range = (tiles * batch + blocks - 1) / blocks;
+  *range_tiles = static_cast<int>(per_range > 0 ? per_range : 1);
+  *slots = static_cast<int>((tiles + *range_tiles - 1) / *range_tiles);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
+// K1 on 4 x 32 bf16: the partial slots per batch item that
+// folded_context_forward uses for this shape (its scratch is sized by them),
+// or -1 with *err set to a CUDA error code.
+int folded_context_slots(int batch, int n, int* err) {
+  int range_tiles = 0, slots = 0;
+  *err = batch < 1 || n < 1 ? static_cast<int>(cudaErrorInvalidValue)
+                            : context_ranges(batch, n, &range_tiles, &slots);
+  return *err ? -1 : slots;
+}
+
 // K1: ctx [batch, 128, 128] f32 from k, v [batch, n, 128] bf16 (token stride
-// k_ld / v_ld elements, batch stride k_bs / v_bs) and mem_k, mem_v
-// [n_mem, 128] bf16. part_m, part_s [batch, n_chunks, 128] and part_ctx
-// [batch, n_chunks, 4, 32, 32] f32 are scratch, n_chunks = ceil(n / chunk).
-// Returns cudaGetLastError() after the two launches.
+// k_ld / v_ld elements, batch stride k_bs / v_bs, all multiples of 8, rows
+// 16-byte aligned) and mem_k, mem_v [n_mem, 128] bf16. part_m, part_s [batch,
+// slots, 128] and part_ctx [batch, slots, 4, 32, 32] f32 are scratch, with
+// slots from folded_context_slots. Returns cudaGetLastError() after the two
+// launches, or the error of a tensor map the TMA cannot take.
 int folded_context_forward(const void* k, const void* v, long long k_ld, long long v_ld,
                            long long k_bs, long long v_bs, const void* mem_k,
-                           const void* mem_v, int n_mem, int batch, int n, int chunk,
-                           void* part_m, void* part_s, void* part_ctx, void* ctx,
-                           void* stream) {
+                           const void* mem_v, int n_mem, int batch, int n, void* part_m,
+                           void* part_s, void* part_ctx, void* ctx, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (n + chunk - 1) / chunk;
-  folded_context_partial<<<dim3(n_chunks, batch), THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), k_ld, v_ld,
-      k_bs, v_bs, n, chunk, n_chunks, static_cast<float*>(part_m),
-      static_cast<float*>(part_s), static_cast<float*>(part_ctx));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int range_tiles = 0, slots = 0;
+  int err = context_ranges(batch, n, &range_tiles, &slots);
+  CUtensorMap k_map, v_map;
+  if (!err) err = folded_map(&k_map, k, k_ld, k_bs, batch, n, k12::CTX_TILE);
+  if (!err) err = folded_map(&v_map, v, v_ld, v_bs, batch, n, k12::CTX_TILE);
+  if (err) return err;
+  folded_context_partial<<<dim3(slots, batch), k12::NTHREADS, k12::CTX_SMEM, s>>>(
+      k_map, v_map, n, range_tiles, static_cast<float*>(part_m), static_cast<float*>(part_s),
+      static_cast<float*>(part_ctx));
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   folded_context_combine<<<dim3(NH * (DH / COMBINE_ROWS), batch), THREADS, 0, s>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_s),
       static_cast<const float*>(part_ctx), static_cast<const __nv_bfloat16*>(mem_k),
-      static_cast<const __nv_bfloat16*>(mem_v), n_mem, n_chunks, static_cast<float*>(ctx));
+      static_cast<const __nv_bfloat16*>(mem_v), n_mem, slots, static_cast<float*>(ctx));
   return static_cast<int>(cudaGetLastError());
 }
 
 // K2: out [batch, n, 128] bf16 (contiguous) from q [batch, n, 128] bf16
-// (token stride q_ld, batch stride q_bs) and ctx [batch, 128, 128] f32.
-// Returns cudaGetLastError() after the launch.
+// (token stride q_ld, batch stride q_bs, multiples of 8, rows 16-byte aligned)
+// and ctx [batch, 128, 128] f32. Returns cudaGetLastError() after the launch,
+// or the error of a tensor map the TMA cannot take.
 int folded_project_forward(const void* q, long long q_ld, long long q_bs, const void* ctx,
-                           void* out, int batch, int n, int grid_x, float scale,
-                           void* stream) {
+                           void* out, int batch, int n, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (n + K2_ROWS - 1) / K2_ROWS;
-  folded_project<<<dim3(grid_x, batch), THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(q), q_ld, q_bs, static_cast<const float*>(ctx),
-      static_cast<__nv_bfloat16*>(out), n, n_tiles, scale);
+  if (batch < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  static int cache[MAX_DEVICES] = {};
+  int blocks = 0;
+  int err = card_blocks(reinterpret_cast<const void*>(folded_project), k12::PROJ_SMEM, cache,
+                        &blocks);
+  CUtensorMap q_map;
+  if (!err) err = folded_map(&q_map, q, q_ld, q_bs, batch, n, k12::PROJ_TILE);
+  if (err) return err;
+  // as many blocks per batch item as fill the card once, at most one per tile
+  const int tiles = (n + k12::PROJ_TILE - 1) / k12::PROJ_TILE;
+  const int per_item = std::max(1, std::min(tiles, (blocks + batch - 1) / batch));
+  folded_project<<<dim3(per_item, batch), k12::NTHREADS, k12::PROJ_SMEM, s>>>(
+      q_map, static_cast<const float*>(ctx), static_cast<__nv_bfloat16*>(out), n, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,11 @@
 // Building blocks of the redesigned kernels (K3's bf16 path in
 // csrc/flash_attention.cu, the bf16 box paths of K5a and K5b in
-// csrc/tap_conv.cu, P1's streaming path in csrc/gemm_probes.cu): 16-byte
-// cp.async copies into shared memory with zero-fill, tiles copied by the
-// Tensor Memory Accelerator (TMA) and counted on an mbarrier, ldmatrix
-// fragment loads (plain and transposed) and mma.sync.m16n8k16 on bf16 with
-// f32 accumulation.
+// csrc/tap_conv.cu, P1's streaming path in csrc/gemm_probes.cu, K1 and K2 on
+// 4 x 32 bf16 heads in csrc/linear_attention.cu): 16-byte cp.async copies
+// into shared memory with zero-fill, 2-D and 3-D tiles copied by the Tensor
+// Memory Accelerator (TMA) and counted on an mbarrier, the host's encoder of
+// their tensor maps, ldmatrix fragment loads (plain and transposed) and
+// mma.sync.m16n8k16 on bf16 with f32 accumulation.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, q = lane % 4), each
 // 32-bit register two bf16 values, the lower index in the lower half:
@@ -24,6 +25,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,6 +130,23 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_
       : "memory");
 }
 
+// The box of a 3-D tensor map at element coordinates (c0 innermost, c1, c2),
+// as tma_load_2d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Order this thread's generic-proxy accesses to shared memory before later
+// async-proxy (TMA) accesses to it, such as a refill of a stage it wrote into.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // the first `threads` threads of the block (whole warps) meet at named barrier id
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -158,6 +177,39 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The TMA's encoder, cuTensorMapEncodeTiled, looked up through the runtime (no
+// link to libcuda).
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dimensions (dims innermost first; strides in
+// bytes of dimensions 1.., each a multiple of 16) in boxes of `box` elements
+// with the 128-byte swizzle (box[0] is 64: one 128-byte row per box row),
+// zeros outside the tensor. Returns 0, or a CUDA error code.
+inline int bf16_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace mma_async

@@ -31,9 +31,9 @@ k and v that already hold the memory tokens:
 
 The kernels take bf16 or f32 operands and any head width d that is a
 multiple of 8 (above 128 in column tiles of 128); the roundings above hold
-whatever the operands' dtype. K1 and K2 have a specialisation for 4 heads × 32 in bf16 (the
-flagship's layer) and a general path per (batch, head) for the rest, which
-K4a and K4b share.
+whatever the operands' dtype. K1 and K2 have a specialisation for 4 heads × 32
+in bf16 (the flagship's layer: TMA rings and tensor-core products) and a
+general path per (batch, head) for the rest, which K4a and K4b share.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then. For CUDA tensors it launches the hand-written kernel in
@@ -44,6 +44,7 @@ wrapper call that launched.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Dict, Optional, Sequence
@@ -58,7 +59,6 @@ from flowtrain_stochastic_interpolation_torch.ops.flash_attention import (
 
 SOURCE = "linear_attention"
 _SPECIALISED = (4, 32)  # heads, d of the bf16 specialisation of K1 and K2
-_K2_ROWS = 32           # rows per tile of the specialised K2 (K2_ROWS in the source)
 _WIDE_ROWS = 32         # rows per tile of the projection at d > 128 (WIDE_ROWS)
 
 launch_counts: Dict[str, int] = {
@@ -148,11 +148,13 @@ def linear_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE).library
     vp, ll, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.folded_context_slots.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.folded_context_slots.restype = i32
     lib.folded_context_forward.argtypes = [
-        vp, vp, ll, ll, ll, ll, vp, vp, i32, i32, i32, i32, vp, vp, vp, vp, vp,
+        vp, vp, ll, ll, ll, ll, vp, vp, i32, i32, i32, vp, vp, vp, vp, vp,
     ]
     lib.folded_context_forward.restype = i32
-    lib.folded_project_forward.argtypes = [vp, ll, ll, vp, vp, i32, i32, i32, f32, vp]
+    lib.folded_project_forward.argtypes = [vp, ll, ll, vp, vp, i32, i32, f32, vp]
     lib.folded_project_forward.restype = i32
     lib.context_forward.argtypes = [
         vp, vp, i32, ll, ll, ll, ll, ll, ll, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
@@ -284,6 +286,33 @@ def _project(q: torch.Tensor, q_strides, ctx: torch.Tensor, ctx_strides, heads: 
     return out
 
 
+# The 4 × 32 kernels' wrappers run at every attention call, and at the 16³
+# stage their host time is longer than their device time, so they keep it
+# short: no device switch where the device is current already, the stream as
+# the raw handle (the public ``torch.cuda.current_stream(device)`` builds a
+# Stream object, several µs a call), the partial slots cached per shape.
+def _current(device: torch.device):
+    """``torch.cuda.device(device)``, or nothing where the device is current."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The device's current CUDA stream as a ``cudaStream_t`` value."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.lru_cache(maxsize=1024)
+def _folded_slots(device_index: int, b: int, n: int) -> int:
+    """K1's partial slots per batch item at this shape on the current card, as
+    the C entry point will use them (its token ranges fill the card once)."""
+    err = ctypes.c_int(0)
+    slots = _library().folded_context_slots(b, n, ctypes.byref(err))
+    _raise_on(err.value, "folded_context_slots")
+    return slots
+
+
 def _folded_head_dim(t: torch.Tensor, heads: int) -> int:
     if t.ndim != 3 or heads < 1 or t.shape[-1] % heads:
         raise ValueError(f"[B, N, h·d] with h = {heads} heads, got {tuple(t.shape)}")
@@ -325,19 +354,18 @@ def folded_context(k: torch.Tensor, v: torch.Tensor, mem_k: torch.Tensor,
         launch_counts["folded_context"] += 1
         return ctx
     lib = _library()
-    with torch.cuda.device(k.device):
-        chunk = _context_chunk(b, n, k.device)
-        n_chunks = -(-n // chunk)
-        f32 = dict(dtype=torch.float32, device=k.device)
-        part_m = torch.empty(b, n_chunks, hd, **f32)
-        part_s = torch.empty(b, n_chunks, hd, **f32)
-        part_ctx = torch.empty(b, n_chunks, heads, d, d, **f32)
-        ctx = torch.empty(b, hd, hd, **f32)
-        stream = torch.cuda.current_stream(k.device).cuda_stream
+    with _current(k.device):
+        slots = _folded_slots(k.device.index, b, n)
+        # one allocation: ctx [b, hd, hd], then the scratch: m and s [b, slots,
+        # hd] and the diagonal blocks [b, slots, h, d, d]
+        stats = b * slots * hd
+        buf = torch.empty(b * hd * hd + (2 + d) * stats, dtype=torch.float32, device=k.device)
+        ctx = buf[:b * hd * hd].view(b, hd, hd)
+        part = buf.data_ptr() + 4 * b * hd * hd
         code = lib.folded_context_forward(
             k.data_ptr(), v.data_ptr(), k.stride(1), v.stride(1), k.stride(0), v.stride(0),
-            mem_k.data_ptr(), mem_v.data_ptr(), mem_k.shape[0], b, n, chunk,
-            part_m.data_ptr(), part_s.data_ptr(), part_ctx.data_ptr(), ctx.data_ptr(), stream,
+            mem_k.data_ptr(), mem_v.data_ptr(), mem_k.shape[0], b, n, part, part + 4 * stats,
+            part + 8 * stats, ctx.data_ptr(), _raw_stream(k.device),
         )
     _raise_on(code, "folded_context")
     launch_counts["folded_context"] += 1
@@ -358,15 +386,13 @@ def folded_project(q: torch.Tensor, ctx: torch.Tensor, heads: int) -> torch.Tens
         launch_counts["folded_project"] += 1
         return out
     lib = _library()
-    with torch.cuda.device(q.device):
+    with _current(q.device):
         out = torch.empty(b, n, hd, dtype=q.dtype, device=q.device)
         if n == 0:
             return out
-        grid_x = _project_grid(n, _K2_ROWS, b, q.device)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.folded_project_forward(
-            q.data_ptr(), q.stride(1), q.stride(0), ctx.data_ptr(), out.data_ptr(),
-            b, n, grid_x, d**-0.5, stream,
+            q.data_ptr(), q.stride(1), q.stride(0), ctx.data_ptr(), out.data_ptr(), b, n,
+            d**-0.5, _raw_stream(q.device),
         )
     _raise_on(code, "folded_project")
     launch_counts["folded_project"] += 1

@@ -32,6 +32,20 @@ def test_linear_attention_stays_bound_by_bytes(exps):
     assert ms == pytest.approx(0.3207, abs=1e-3)
 
 
+@pytest.mark.parametrize("work,n,expected", [
+    (chip_smoke.context_work, 32768, 0.0402), (chip_smoke.context_work, 4096, 0.0052),
+    (chip_smoke.project_work, 32768, 0.0402), (chip_smoke.project_work, 4096, 0.0052),
+])
+def test_linear_attention_at_32_and_16_cubed_is_bound_by_bytes(work, n, expected):
+    """K1 and K2 at b8 × 32³ and 16³ × 128: k and v (K1), or q and the output
+    (K2), in bf16 and the f32 ctx, over 3.35 TB/s; their products and
+    exponentials take less time."""
+    nbytes, flops, exps = work(B, n)
+    ms, by = chip_smoke.bound(nbytes, flops, exps=exps)
+    assert by == "bytes"
+    assert ms == pytest.approx(expected, abs=1e-4)
+
+
 def test_bound_picks_the_largest_term():
     peak = chip_smoke.PEAK_BF16_FLOP_PER_S
     assert chip_smoke.bound(0, peak * 1e-3)[1] == "operations"

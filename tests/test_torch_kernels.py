@@ -20,6 +20,7 @@ from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
 from flowtrain_stochastic_interpolation_torch.ops import tap_conv as tc
 from flowtrain_stochastic_interpolation_torch.tools import ab_flash_attention as ab_flash
 from flowtrain_stochastic_interpolation_torch.tools import ab_gemm_conv
+from flowtrain_stochastic_interpolation_torch.tools import ab_linear_attention as ab_la
 from flowtrain_stochastic_interpolation_torch.tools import variants
 
 HEADS, WIDTH = 4, 128
@@ -39,13 +40,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(batch, n, device, seed=0, dtype=torch.bfloat16):
-    """q, k, v as column slices of one [B, N, 384] tensor, and memory KV [4, 128]."""
+def _qkv(batch, n, device, seed=0, dtype=torch.bfloat16, contiguous=False, spread=False,
+         mem_shift=0.0):
+    """q, k, v as column slices of one [B, N, 384] tensor (or contiguous [B, N,
+    128] tensors), and memory KV [4, 128]; with ``spread`` head 0's q and k
+    logits sit 250 below head 3's, and ``mem_shift`` lifts the memory keys."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    qkv = torch.randn(batch, n, 3 * WIDTH, generator=gen, device=device).to(dtype)
-    mem = torch.randn(2, 4, WIDTH, generator=gen, device=device).to(dtype)
-    return (qkv[..., :WIDTH], qkv[..., WIDTH:2 * WIDTH], qkv[..., 2 * WIDTH:],
-            mem[0].contiguous(), mem[1].contiguous())
+    qkv = torch.randn(batch, n, 3 * WIDTH, generator=gen, device=device)
+    mem = torch.randn(2, 4, WIDTH, generator=gen, device=device)
+    mem[0] += mem_shift
+    if spread:
+        d = WIDTH // HEADS
+        for part in (0, 1):
+            qkv[..., part * WIDTH:part * WIDTH + d] -= 200.0
+            qkv[..., (part + 1) * WIDTH - d:(part + 1) * WIDTH] += 50.0
+    qkv, mem = qkv.to(dtype), mem.to(dtype)
+    q, k, v = qkv[..., :WIDTH], qkv[..., WIDTH:2 * WIDTH], qkv[..., 2 * WIDTH:]
+    if contiguous:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v, mem[0].contiguous(), mem[1].contiguous()
 
 
 def _einsum_reference(q, k, v, mk, mv):
@@ -104,6 +117,13 @@ def test_flash_variants_of_the_ab_tool_still_apply_to_the_source():
         assert ab_flash.variant_source(subs) != ab_flash.variant_source([])
 
 
+def test_linear_attention_variants_of_the_ab_tool_still_apply_to_the_source():
+    """tools/ab_linear_attention.py builds K1 and K2 variants by substituting
+    lines of csrc/linear_attention.cu: each substitution must still find its line."""
+    for subs, _ in ab_la.VARIANTS.values():
+        assert variants.variant_source(la.SOURCE, subs) != variants.variant_source(la.SOURCE, [])
+
+
 @pytest.mark.parametrize("source,table", [
     (gp.SOURCE, ab_gemm_conv.P1_VARIANTS), (tc.SOURCE, ab_gemm_conv.K5A_VARIANTS)])
 def test_gemm_and_conv_variants_of_the_ab_tool_still_apply_to_the_sources(source, table):
@@ -117,16 +137,30 @@ def test_gemm_and_conv_variants_of_the_ab_tool_still_apply_to_the_sources(source
 # CUDA kernels (on the card)
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch,n", [(2, 4096 + 37), (3, 8192), (1, 1)])
-def test_kernels_match_plain_versions(cuda, batch, n):
-    q, k, v, mk, mv = _qkv(batch, n, cuda, seed=n)
+@pytest.mark.parametrize("batch,n,options", [
+    (2, 4096 + 37, {}), (3, 8192, {}), (1, 1, {}),
+    # the 4 x 32 kernels' edges: under one tile, a last tile partly past n at
+    # 64³, contiguous [B, N, 128] operands, the cross-head spread, the memory
+    # tokens carrying most of the weight
+    (1, 5, {}), (8, 1, {}), (8, 5, {}), (8, 262144 + 37, {}), (1, 262144, {}),
+    (8, 32768, dict(contiguous=True)), (1, 4096 + 37, dict(contiguous=True)),
+    (8, 5, dict(contiguous=True)), (8, 4096, dict(spread=True)),
+    (8, 262144, dict(mem_shift=12.0)),
+])
+def test_kernels_match_plain_versions(cuda, batch, n, options):
+    q, k, v, mk, mv = _qkv(batch, n, cuda, seed=n, **options)
     la.reset_launch_counts()
     ctx = la.folded_context(k, v, mk, mv, HEADS)
+    ctx_again = la.folded_context(k, v, mk, mv, HEADS)
     ctx_plain = la.folded_context_plain(k, v, mk, mv, HEADS)
     out = la.folded_project(q, ctx_plain, HEADS)
+    out_again = la.folded_project(q, ctx_plain, HEADS)
     out_plain = la.folded_project_plain(q, ctx_plain, HEADS)
     torch.cuda.synchronize()
-    assert la.launch_counts == _launched(folded_context=1, folded_project=1)
+    assert la.launch_counts == _launched(folded_context=2, folded_project=2)
+    assert torch.equal(ctx, ctx_again) and torch.equal(out, out_again)
+    head = torch.arange(WIDTH, device=cuda) // (WIDTH // HEADS)
+    assert torch.count_nonzero(ctx[:, head[:, None] != head[None, :]]) == 0
     # the tolerances chip_smoke.py holds the kernels to
     _assert_close_to_plain(ctx, ctx_plain, atol_frac=3e-2, rtol=1e-2)
     _assert_close_to_plain(out, out_plain, atol_frac=3e-2, rtol=2e-2)
