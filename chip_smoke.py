@@ -29,19 +29,25 @@ Phases, each printed on one flushed line with the seconds since start:
      d in {8, 16, 48, 128} in bf16 and d = 32 in f32, and the bf16
      tensor-core path's edges: b2 x 1061 x 1065 at d in {8, 24, 40, 64, 128},
      b3 x 5 queries x 9 keys (under one key tile) and b1 x 4096 x 4100;
-   - K4a (v1 context) and K4b (v1 projection) at b8 x {262144, 32768} queries
-     with 4 more keys, a ragged b2 x 32768 + 37, a peaked k (x 8), a 64³ case
-     whose 4 memory tokens carry most of the weight, and b8 x 32768 in f32;
+   - K4a (v1 context) and K4b (v1 projection) on 4 x 32 bf16 heads at b8 x
+     {262144, 32768} queries with 4 more keys, one query (M = 5) at b1 and
+     b8, a ragged b2 x 32768 + 37, b1 x 262144, a peaked k (x 8), a 64³ case
+     whose 4 memory tokens carry most of the weight, and q contiguous (b8 x
+     32768, b1 x 32768 + 37) beside the projection's column slice that the
+     rest use, each launched twice with identical outputs; then the general
+     path at b8 x 32768 in f32 and b2 x 32768 with 2 heads x 64;
 3. kernel times: each kernel, its plain version and (K3) one PyTorch call of
    the same function (``scaled_dot_product_attention``) at the main paths'
    shapes (CUDA events around 20 back-to-back launches after a warm-up,
    median of 5 such rounds; 2 launches and 3 rounds for a plain version)
    beside the card's bound (bytes, products, or for K3 the exponentials);
-3a. ``tools.ab_linear_attention``: K1 and K2 at the three stages beside the
-   kernels they replaced (FP32 cores), another ring depth, and knock-outs of
-   the exponentials, the products and all but the loads (wrong on purpose),
-   in turns; then ``tools.bench_folded``'s kernel part: each wrapper's host
-   time per call beside its kernels' device time per launch;
+3a. ``tools.ab_linear_attention``: K1 and K2 at the three stages, K4a and K4b
+   at 64³ and 32³, beside the FP32-core kernels (K1 and K2's old ones, K4a
+   and K4b's general path), another ring depth, and knock-outs of the
+   exponentials, the products, all but the loads and (K4a, K4b) p's low
+   terms (wrong on purpose), in turns; then ``tools.bench_folded``'s kernel
+   part: each wrapper's host time per call beside its kernels' device time
+   per launch;
 4. backwards: the flash, folded and v1 backwards in bf16 against autograd of
    the f32 plain versions at 16³ b1 (flash, folded) and 32³ b1 (v1);
 4a. wide heads, the fourth slice's repair: K1 and K2 (h = 16 at d = 136, h = 1
@@ -90,7 +96,10 @@ Phases, each printed on one flushed line with the seconds since start:
    64³ b4 forward and backward, 32³ b8 forward, each 1 warm-up and 5 timed
    calls closed by ``torch.cuda.synchronize()``, with the median ms, peak
    memory and launches (K4a 1 and K4b 1 per call), and held against the same
-   weights through the folded kernels (K1 + K2), timed the same way;
+   weights through the folded kernels (K1 + K2), timed the same way; a
+   ``torch.profiler`` breakdown of one 64³ b8 forward of each block (the
+   kernels, the two ``torch.cat`` of the memory tokens, the projections, the
+   norms);
 8. training, the second slice's main path, for the flagship and then for
    fa16: ``init_train_state`` and ``make_train_step`` at 64³, micro-batch 4 x
    accumulation 2, on synthetic batches generated on the card; 2 warm-up and 8
@@ -215,8 +224,14 @@ PROBE_CHECK_REPS = 40
 # bf16 path sums exact bf16 products in f32 (scores in another order) and
 # passes p to p·v as two bf16 terms, p_hi + p_lo, which carry p to about 2^-16
 # (bf16 p alone, 2^-9, misses this tolerance); then both round out to bf16.
-# K4a and K4b are held to the same rule: both sides compute in f32 and differ
-# only in the order of the sums and in K4a's chunk max.
+# K4a and K4b are held to the same rule. Their plain versions compute in f32.
+# On 4 x 32 bf16 heads the kernels take each f32 product through bf16 terms on
+# the tensor cores: K4a's p as p_hi + p_lo (v is bf16), K4b's p and ctx each as
+# hi + lo, with p_lo·c_lo dropped; each product is within 2^-16 (K4b: 3·2^-16)
+# of its f32 value (tests/test_torch_linear_attention_v1.py holds this order of
+# sums against the JAX kernels). Elsewhere (f32, other heads or widths) they
+# compute in f32 on the FP32 cores. Either way the kernels differ from the
+# plain versions in the order of the sums and in K4a's range max.
 TOL = {
     "folded_context": dict(atol_frac=3e-2, rtol=1e-2, rel_l2=1e-2),
     "folded_project": dict(atol_frac=3e-2, rtol=2e-2, rel_l2=1e-2),
@@ -384,18 +399,21 @@ def make_attention_inputs(batch: int, n: int, m: int, seed: int, q_scale: float 
 
 
 def make_v1_inputs(batch: int, n: int, seed: int, k_scale: float = 1.0, mem_shift: float = 0.0,
-                   dtype: torch.dtype = torch.bfloat16, d: int = HEAD_DIM):
+                   dtype: torch.dtype = torch.bfloat16, d: int = HEAD_DIM, heads: int = HEADS,
+                   contiguous: bool = False):
     """As ``LinearAttention``'s v1 path hands them over: q a column slice of a
-    [B, N, 3, h, d] projection, and k, v [B, 4 + N, h, d] with the 4 memory
-    tokens first (k's shifted up by ``mem_shift``, the keys scaled by ``k_scale``)."""
+    [B, N, 3, h, d] projection (a contiguous [B, N, h, d] with ``contiguous``),
+    and k, v [B, 4 + N, h, d] with the 4 memory tokens first (k's shifted up by
+    ``mem_shift``, the keys scaled by ``k_scale``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn(batch, n, 3, HEADS, d, generator=gen, device="cuda")
+    qkv = torch.randn(batch, n, 3, heads, d, generator=gen, device="cuda")
     qkv[:, :, 1] *= k_scale
-    mem = torch.randn(2, N_MEM, HEADS, d, generator=gen, device="cuda")
+    mem = torch.randn(2, N_MEM, heads, d, generator=gen, device="cuda")
     mem[0] += mem_shift
     qkv, mem = qkv.to(dtype), mem.to(dtype)
     cat = lambda i: torch.cat([mem[i].expand(batch, -1, -1, -1), qkv[:, :, i + 1]], dim=1)
-    return qkv[:, :, 0], cat(0), cat(1)
+    q = qkv[:, :, 0]
+    return q.contiguous() if contiguous else q, cat(0), cat(1)
 
 
 def head_diagonal(width: int, heads: int, device) -> torch.Tensor:
@@ -520,31 +538,47 @@ def phase_kernel_check():
         check_lse(label, lse, want_lse)
         del q, k, v, out, lse, want_out, want_lse
 
-    # K4a and K4b, this slice's kernels
-    v1_cases = [(f"b{BATCH} x {n} q x {n + N_MEM} kv", BATCH, n, {}) for n in STAGE_TOKENS[:2]]
-    v1_cases += [
-        (f"b2 x {STAGE_TOKENS[1]}+37 ragged", 2, STAGE_TOKENS[1] + 37, {}),
-        (f"b{BATCH} x {STAGE_TOKENS[1]} peaked (k x 8)", BATCH, STAGE_TOKENS[1],
-         dict(k_scale=8.0)),
-        (f"b{BATCH} x {STAGE_TOKENS[0]} memory-heavy (mem_k + {MEM_SHIFT:g})", BATCH,
-         STAGE_TOKENS[0], dict(mem_shift=MEM_SHIFT)),
-        (f"b{BATCH} x {STAGE_TOKENS[1]} float32", BATCH, STAGE_TOKENS[1],
-         dict(dtype=torch.float32)),
-    ]
-    for i, (label, b, n, options) in enumerate(v1_cases):
-        q, k, v = make_v1_inputs(b, n, seed=80 + i, **options)
-        ctx_plain = la.linear_context_plain(k, v)
-        ctx = la.linear_context(k, v)
-        out_plain = la.linear_project_plain(q, ctx_plain)
-        out = la.linear_project(q, ctx_plain)
-        torch.cuda.synchronize()
-        check(out.dtype == q.dtype and out.shape == q.shape,
-              f"linear_project {label}: output {out.dtype} {tuple(out.shape)}")
-        for name, got, want in (("linear_context", ctx, ctx_plain),
-                                ("linear_project", out, out_plain)):
-            worst[name] = max(worst[name], compare(name, label, got, want))
-        del q, k, v, ctx, ctx_plain, out, out_plain
+    check_v1(worst)
     return worst
+
+
+def check_v1(worst: dict) -> None:
+    """K4a and K4b against their plain versions: on 4 x 32 bf16 heads (the
+    specialised kernels, each case launched twice with identical outputs) at
+    the v1 block's shapes and edges, then one case per rule that keeps the
+    general path (f32; 2 heads x 64)."""
+    n0, n1 = STAGE_TOKENS[:2]
+    cases = [(f"b{BATCH} x {n} q x {n + N_MEM} kv", BATCH, n, {}) for n in (n0, n1)]
+    cases += [(f"b{b} x 1 q x {1 + N_MEM} kv", b, 1, {}) for b in (1, BATCH)]
+    cases += [(f"b2 x {n1}+37 ragged", 2, n1 + 37, {}),
+              (f"b1 x {n0}", 1, n0, {}),
+              (f"b{BATCH} x {n1} peaked (k x 8)", BATCH, n1, dict(k_scale=8.0)),
+              (f"b{BATCH} x {n0} memory-heavy (mem_k + {MEM_SHIFT:g})", BATCH, n0,
+               dict(mem_shift=MEM_SHIFT)),
+              (f"b{BATCH} x {n1} q contiguous", BATCH, n1, dict(contiguous=True)),
+              (f"b1 x {n1}+37 ragged, q contiguous", 1, n1 + 37, dict(contiguous=True))]
+    general = [(f"b{BATCH} x {n1} float32", BATCH, n1, dict(dtype=torch.float32)),
+               (f"b2 x {n1} x 2 heads x 64", 2, n1, dict(heads=2, d=64))]
+    for i, (label, b, n, options) in enumerate(cases + general):
+        specialised = i < len(cases)
+        q, k, v = make_v1_inputs(b, n, seed=80 + i, **options)
+        check(la._v1_specialised(k, v) == la._v1_specialised(q) == specialised,
+              f"v1 {label}: the dispatch does not take the "
+              f"{'4 x 32 bf16' if specialised else 'general'} kernels")
+        label += "" if specialised else " (general path)"
+        ctx_plain = la.linear_context_plain(k, v)
+        ctx, ctx_again = la.linear_context(k, v), la.linear_context(k, v)
+        out_plain = la.linear_project_plain(q, ctx_plain)
+        out, out_again = la.linear_project(q, ctx_plain), la.linear_project(q, ctx_plain)
+        torch.cuda.synchronize()
+        check(out.dtype == q.dtype and out.shape == q.shape and out.is_contiguous(),
+              f"linear_project {label}: output {out.dtype} {tuple(out.shape)}")
+        for name, got, again, want in (("linear_context", ctx, ctx_again, ctx_plain),
+                                       ("linear_project", out, out_again, out_plain)):
+            worst[name] = max(worst[name], compare(name, label, got, want))
+            check(not specialised or torch.equal(got, again),
+                  f"{name} {label}: a second launch differs")
+        del q, k, v, ctx, ctx_again, ctx_plain, out, out_again, out_plain
 
 
 def time_ms(fn, reps: int = 20, rounds: int = 5, warmup: int = 3) -> float:
@@ -584,6 +618,20 @@ def context_work(batch: int, n: int):
 def project_work(batch: int, n: int):
     """K2's bytes (q in, out, bf16; the f32 ctx), products and exponentials."""
     return (2 * batch * n * WIDTH * 2 + batch * WIDTH * WIDTH * 4,
+            2.0 * batch * n * WIDTH * HEAD_DIM, batch * n * WIDTH)
+
+
+def v1_context_work(batch: int, n: int):
+    """K4a's bytes (k and v of n + 4 tokens once each, bf16; the f32 ctx [B, 4,
+    32, 32]), f32 products and exponentials, for n queries."""
+    m = n + N_MEM
+    return (2 * batch * m * WIDTH * 2 + batch * WIDTH * HEAD_DIM * 4,
+            2.0 * batch * m * WIDTH * HEAD_DIM, batch * m * WIDTH)
+
+
+def v1_project_work(batch: int, n: int):
+    """K4b's bytes (q in, out, bf16; the f32 ctx), f32 products and exponentials."""
+    return (2 * batch * n * WIDTH * 2 + batch * WIDTH * HEAD_DIM * 4,
             2.0 * batch * n * WIDTH * HEAD_DIM, batch * n * WIDTH)
 
 
@@ -643,21 +691,21 @@ def phase_kernel_times():
             library_name="scaled_dot_product_attention", exps=b * HEADS * n * m)
         del q, k, v, qt, kt, vt
 
-    # K4a and K4b: bf16 q, k, v in and out, f32 ctx, f32 products on the FP32 cores
+    # K4a and K4b: bf16 q, k, v in and out, f32 ctx, f32 products (counted at the
+    # FP32 cores' rate, whatever units compute them)
     for n in STAGE_TOKENS[:2]:
-        m = n + N_MEM
         q, k, v = make_v1_inputs(BATCH, n, seed=110)
         ctx = la.linear_context_plain(k, v)
-        ctx_bytes = BATCH * HEADS * HEAD_DIM * HEAD_DIM * 4
         label = f"b{BATCH} x {n} x {HEADS} x {HEAD_DIM}"
+        nbytes, flops, exps = v1_context_work(BATCH, n)
         rows[("linear_context", BATCH, n)] = timed_row(
             "linear_context", label, lambda: la.linear_context(k, v),
-            lambda: la.linear_context_plain(k, v), 2 * BATCH * m * WIDTH * 2 + ctx_bytes,
-            2.0 * BATCH * m * WIDTH * HEAD_DIM, PEAK_F32_FLOP_PER_S, exps=BATCH * m * WIDTH)
+            lambda: la.linear_context_plain(k, v), nbytes, flops, PEAK_F32_FLOP_PER_S, exps=exps)
+        nbytes, flops, exps = v1_project_work(BATCH, n)
         rows[("linear_project", BATCH, n)] = timed_row(
             "linear_project", label, lambda: la.linear_project(q, ctx),
-            lambda: la.linear_project_plain(q, ctx), 2 * BATCH * n * WIDTH * 2 + ctx_bytes,
-            2.0 * BATCH * n * WIDTH * HEAD_DIM, PEAK_F32_FLOP_PER_S, exps=BATCH * n * WIDTH)
+            lambda: la.linear_project_plain(q, ctx), nbytes, flops, PEAK_F32_FLOP_PER_S,
+            exps=exps)
         del q, k, v, ctx
     return rows
 
@@ -1274,6 +1322,11 @@ def phase_v1(widths) -> dict:
             msg += f", input gradient {grad_rel:.3e} (limit {V1_FOLDED_GRAD_REL_TOL:g})"
             check(grad_rel <= V1_FOLDED_GRAD_REL_TOL, msg)
         say("v1", msg)
+        if (batch, side, backward) == V1_CASES[0]:  # where the block's time goes, beside the folded one
+            with torch.inference_mode():
+                for name, module, wall in (("v1", v1, times), ("folded", folded, folded_times)):
+                    profile_table("v1", lambda: module(x), f"one {name} {side}³ b{batch} forward",
+                                  statistics.median(wall))
         del x, dout, out, grad, ref, ref_grad
     del v1, folded
     torch.cuda.empty_cache()
@@ -1391,7 +1444,7 @@ def main() -> int:
 
     worst = phase_kernel_check()
     rows = phase_kernel_times()
-    say("ab_linear_attention", "K1 and K2 variants in turns")
+    say("ab_linear_attention", "K1, K2, K4a and K4b variants in turns")
     ab_la.main()
     say("bench_folded", "K1 and K2 through their wrappers: host and device time")
     bench_folded.kernels(torch.device("cuda"))

@@ -1,16 +1,20 @@
 // Linear attention, forward, written by hand for Hopper (sm_90a), with a plain
 // C interface bound from Python through ctypes
 // (flowtrain_stochastic_interpolation_torch/ops/linear_attention.py): the
-// folded context (K1) and projection (K2) kernels specialised for the
-// flagship's 4 x 32 bf16 heads, first; then the general path per (batch,
-// head), which serves K1 and K2 at every other head count, width and dtype
-// and the v1 kernels K4a and K4b (see its own note further down).
+// kernels specialised for 4 x 32 bf16 heads, first, which serve the folded
+// context (K1) and projection (K2) of the flagship and, with their products
+// kept at f32 accuracy, the v1 context (K4a) and projection (K4b); then the
+// general path per (batch, head), which serves all four at every other head
+// count, width and dtype (see its own note further down).
 //
 // The specialisation works on the head-folded layout [B, N, h*d] with h = 4
 // heads of d = 32, so h*d = 128: the layout of the UNet's to_qkv projection,
 // read in place through a token stride (q, k and v are column slices of one
 // [B, N, 384] tensor; nothing is copied to make them contiguous). A
-// contiguous [B, N, 128] tensor is read the same way.
+// contiguous [B, N, 128] tensor is read the same way, and so is the v1 path's
+// [B, N, 4, 32] with the heads side by side: q a column slice of the [B, N,
+// 3, 4, 32] projection, k and v the [B, 4 + N, 4, 32] concatenations with the
+// memory tokens first.
 //
 // K1 replaces flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py
 // _folded_context_kernel (called from _folded_fwd):
@@ -25,50 +29,73 @@
 // whose logits sit far below another's), p and ctx rounded to bf16, f32
 // accumulation, bf16 output.
 //
-// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): at the flagship's largest
-// call, 64^3 tokens x batch 8, K1 reads k and v (2 x 537 MB) and K2 reads q
-// and writes out (2 x 537 MB). Each moves about 1.07 GB, 0.32 ms at the
-// memory rate, against 17 GFLOP of products (0.02 ms at the bf16 rate) and
-// 2.7e8 exponentials (0.07 ms on the special-function units): both are bound
-// by bytes, and the design is about keeping the stream at the memory rate
-// with the products and exponentials hidden under it.
+// K4a replaces _context_kernel (called from _linear_attn_fwd_bhnd):
+//     ctx = softmax over tokens of k, per column, ^T . v
+// per (batch, head), [B, h, d, d] f32, with no memory seed (the memory tokens
+// are the first rows of k and v) and every product in f32. K4b replaces
+// _project_kernel:
+//     out = softmax_d(q) * d^-1/2 @ ctx
+// in f32, output in q's dtype. Where K1 and K2 round p (and ctx) to bf16, K4a
+// and K4b split each f32 operand x into two bf16 terms, x_hi = bf16(x) and
+// x_lo = bf16(x - x_hi), which carry x to within 2^-16 (bf16 keeps 8
+// significant bits): K4a takes p.v as p_lo.v + p_hi.v (v is bf16, so exact),
+// K4b takes p.ctx as p_lo.c_hi + p_hi.c_lo + p_hi.c_hi (the dropped p_lo.c_lo
+// is within 2^-16 of it). The bf16 products are exact and their sums f32, on
+// the tensor cores.
 //
-// What the design does about it (namespace k12 and the two kernels below):
+// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): at the flagship's largest
+// call, 64^3 tokens x batch 8, K1 and K4a read k and v (2 x 537 MB) and K2
+// and K4b read q and write out (2 x 537 MB). Each moves about 1.07 GB, 0.32 ms
+// at the memory rate, against 17 GFLOP of products (0.02 ms at the bf16 rate;
+// K4a's two and K4b's three bf16 products per f32 product, 0.04 and 0.05 ms)
+// and 2.7e8 exponentials (0.07 ms on the special-function units): all four are
+// bound by bytes, and the design is about keeping the stream at the memory
+// rate with the products and exponentials hidden under it.
+//
+// What the design does about it (namespace k12 and the kernels below):
 //   * The streams come by the Tensor Memory Accelerator. A producer warp asks
-//     for each tile of 64 (K1) or 128 (K2) tokens x 128 columns as two boxes
-//     of 64 columns (128-byte rows, the 128-byte swizzle, so ldmatrix meets
-//     no bank conflict) of a 3-D tensor map over (column, token, batch) that
-//     reads the projection's column slice in place; tokens past n arrive as
-//     zeros. A ring of stages in shared memory, each counted on an mbarrier
-//     (full: the TMA's bytes; empty: the consumer warps' releases), keeps the
-//     next tiles in flight while the 8 consumer warps work; no __syncthreads
-//     paces the stream. The operands stay bf16 in shared memory.
+//     for each tile of 64 (K1, K4a) or 128 (K2, K4b) tokens x 128 columns as
+//     two boxes of 64 columns (128-byte rows, the 128-byte swizzle, so
+//     ldmatrix meets no bank conflict) of a 3-D tensor map over (column,
+//     token, batch) that reads the operand in place through its token and
+//     batch strides; tokens past n arrive as zeros. A ring of stages in shared
+//     memory, each counted on an mbarrier (full: the TMA's bytes; empty: the
+//     consumer warps' releases), keeps the next tiles in flight while the 8
+//     consumer warps work; no __syncthreads paces the stream. The operands
+//     stay bf16 in shared memory.
 //   * The products run on the tensor cores (mma.sync.m16n8k16, bf16 operands,
-//     f32 accumulation), which is exactly the TPU kernels' bf16 x bf16 -> f32.
-//     The softmax runs on the fragments: p is computed in f32 in the A
-//     registers and rounded to bf16 there; it never touches shared memory.
-//   * K1: consumer warp w owns the 16 k columns 16w.. (head w / 2). A = p^T
-//     comes through ldmatrix.trans from the k tile; each tile's column max is
-//     the max of the thread's fragment values and two quad shuffles; the
-//     running max and sum update in registers, the [16, 32] f32 accumulator
-//     of the head's block is rescaled by exp(m_old - m_new), and B = v comes
-//     through ldmatrix.trans. The TPU kernel carries the online softmax
-//     across a sequential grid; on the card the blocks run in parallel, so K1
-//     is two launches: a persistent partial pass, one block per contiguous
-//     token range of one batch item (as many ranges as fill the card once),
-//     that writes each range's m, s and four diagonal [32, 32] blocks, and a
-//     combine that seeds with the memory tokens and merges the ranges in
-//     order with the exp(m_c - M) rescale (two launches give identical
-//     outputs). At 64^3 b8 that is 264 slots of 17 KB, 0.4% of the stream.
-//   * K2: a persistent grid walks 128-row tiles of each batch item with ctx's
-//     four diagonal blocks staged once per block as bf16 in shared memory;
-//     consumer warp w owns rows 16w.. of each tile and works head by head: q's
-//     A fragments through ldmatrix, the group max and sum from the fragment
-//     and quad shuffles, p = e / sum * d^-1/2 rounded to bf16 in the A
-//     registers, 8 mma against ctx_h's B fragments (ldmatrix.trans). The bf16
+//     f32 accumulation), which is exactly the TPU kernels' bf16 x bf16 -> f32
+//     for K1 and K2, and f32 products to within 2^-16 through the split terms
+//     for K4a and K4b. The softmax runs on the fragments: p is computed in f32
+//     in the A registers and rounded (or split) to bf16 there; it never
+//     touches shared memory.
+//   * K1 and K4a (context_tiles): consumer warp w owns the 16 k columns 16w..
+//     (head w / 2). A = p^T comes through ldmatrix.trans from the k tile; each
+//     tile's column max is the max of the thread's fragment values and two
+//     quad shuffles; the running max and sum update in registers, the [16,
+//     32] f32 accumulator of the head's block is rescaled by exp(m_old -
+//     m_new), and B = v comes through ldmatrix.trans. The TPU kernel carries
+//     the online softmax across a sequential grid; on the card the blocks run
+//     in parallel, so the context is two launches: a persistent partial pass,
+//     one block per contiguous token range of one batch item (as many ranges
+//     as fill the card once), that writes each range's m, s and four diagonal
+//     [32, 32] blocks, and a combine that merges the ranges in order with the
+//     exp(m_c - M) rescale (K1 seeds it with the memory tokens and writes the
+//     zero-padded [128, 128] rows; K4a writes [h, d, d]); two launches give
+//     identical outputs. At 64^3 b8 that is 264 slots of 17 KB, 0.4% of the
+//     stream.
+//   * K2 and K4b (project_tiles): a persistent grid walks 128-row tiles of
+//     each batch item with ctx's four diagonal blocks staged once per block as
+//     bf16 in shared memory (K4b: c_hi and c_lo); consumer warp w owns rows
+//     16w.. of each tile and works head by head: q's A fragments through
+//     ldmatrix, the group max and sum from the fragment and quad shuffles, p =
+//     e / sum * d^-1/2 rounded (K4b: split) to bf16 in the A registers, 8
+//     (K4b: 24) mma against ctx_h's B fragments (ldmatrix.trans). The bf16
 //     output goes into the warp's own rows of the stage it read (q's head h
 //     columns are consumed before head h's output lands there), then out in
-//     16-byte runs; rows past n are never written.
+//     16-byte runs; rows past n are never written. K4b's second copy of ctx
+//     takes the room of a stage: it keeps two stages, so that two blocks
+//     still fit on an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,10 +139,17 @@ constexpr int CTX_STAGE = 4 * CTX_BOX;         // k's two halves, then v's
 constexpr int PROJ_TILE = 16 * CONSUMERS, PROJ_STAGES = 3;  // K2: rows per stage, stages
 constexpr int PROJ_BOX = PROJ_TILE * HALF;
 constexpr int PROJ_STAGE = 2 * PROJ_BOX;       // q's two halves
+constexpr int V1_PROJ_STAGES = 2;             // K4b: its c_lo takes the room of a stage
 constexpr int LDC = DH + 8;                    // a staged ctx row: 5 16-byte units
+constexpr int CTX_COPY = NH * DH * LDC;        // elements of one staged ctx
 constexpr int ALIGN = 1024;                    // the swizzled boxes' alignment
 constexpr int CTX_SMEM = ALIGN + CTX_STAGES * CTX_STAGE * 2;
-constexpr int PROJ_SMEM = ALIGN + (PROJ_STAGES * PROJ_STAGE + NH * DH * LDC) * 2;
+// the ring and 1 (K2: c) or 2 (K4b: c_hi, c_lo) staged copies of ctx, in bytes
+constexpr int proj_smem(int stages, int copies) {
+  return ALIGN + (stages * PROJ_STAGE + copies * CTX_COPY) * 2;
+}
+constexpr int PROJ_SMEM = proj_smem(PROJ_STAGES, 1);
+constexpr int V1_PROJ_SMEM = proj_smem(V1_PROJ_STAGES, 2);
 constexpr float LOG2E = 1.4426950408889634f;
 
 // the ring in dynamic shared memory, aligned for the 128-byte swizzle
@@ -136,20 +170,27 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
+
+// What pack_bf16(x0, x1) = hi dropped of x0 and x1, rounded to bf16 (exact
+// differences, one rounding each): hi + lo carries each value to within 2^-16.
+__device__ __forceinline__ uint32_t pack_bf16_rest(float x0, float x1, uint32_t hi) {
+  return mma_async::pack_bf16(x0 - mma_async::low_f32(hi), x1 - mma_async::high_f32(hi));
+}
 }  // namespace k12
 
 // ---------------------------------------------------------------------------
-// K1, pass 1: block (r, b) walks tiles r * range_tiles .. of batch item b and
-// writes slot b * gridDim.x + r: the running column max m and sum s of its
-// tokens and the four diagonal [32, 32] blocks of sum p^T v, with p = exp(k - m).
-// A range with no token keeps m = -inf, s = 0 and ctx = 0, which the combine
-// weighs as 0.
+// K1 and K4a, pass 1: block (r, b) walks tiles r * range_tiles .. of batch
+// item b and writes slot b * gridDim.x + r: the running column max m and sum s
+// of its tokens and the four diagonal [32, 32] blocks of sum p^T v, with p =
+// exp(k - m) rounded to bf16 in the product (K1) or split into p_hi + p_lo
+// (SPLIT, K4a). A range with no token keeps m = -inf, s = 0 and ctx = 0, which
+// the combine weighs as 0.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(k12::NTHREADS, 2)
-folded_context_partial(const __grid_constant__ CUtensorMap k_map,
-                       const __grid_constant__ CUtensorMap v_map, int n, int range_tiles,
-                       float* __restrict__ part_m, float* __restrict__ part_s,
-                       float* __restrict__ part_ctx) {
+template <bool SPLIT>
+__device__ __forceinline__ void context_tiles(const CUtensorMap& k_map, const CUtensorMap& v_map,
+                                              int n, int range_tiles, float* __restrict__ part_m,
+                                              float* __restrict__ part_s,
+                                              float* __restrict__ part_ctx) {
   using namespace k12;
   using namespace mma_async;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -256,6 +297,7 @@ folded_context_partial(const __grid_constant__ CUtensorMap k_map,
       acc[i][3] *= alpha[1];
     }
     float psum[2] = {0.f, 0.f};
+    uint32_t lo[SPLIT ? 4 : 1][4];  // K4a: p - p_hi in bf16
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
@@ -263,7 +305,8 @@ folded_context_partial(const __grid_constant__ CUtensorMap k_map,
         const float p0 = exp2_approx(fmaf(x[ks][i][0], LOG2E, -shift[i & 1]));
         const float p1 = exp2_approx(fmaf(x[ks][i][1], LOG2E, -shift[i & 1]));
         psum[i & 1] += p0 + p1;        // the sum takes exp in f32
-        a[ks][i] = pack_bf16(p0, p1);  // the product takes it in bf16
+        a[ks][i] = pack_bf16(p0, p1);  // the product takes it in bf16 (K4a: p_hi)
+        if constexpr (SPLIT) lo[ks][i] = pack_bf16_rest(p0, p1, a[ks][i]);
       }
 #pragma unroll
     for (int c = 0; c < 2; ++c) s_run[c] = fmaf(s_run[c], alpha[c], psum[c]);
@@ -274,6 +317,10 @@ folded_context_partial(const __grid_constant__ CUtensorMap k_map,
       for (int p = 0; p < 2; ++p) {
         uint32_t bv[4];
         ldmatrix_x4_trans(bv, st + v_box + swz(16 * ks + b_tok, b_unit + 2 * p));
+        if constexpr (SPLIT) {  // the small term first
+          mma(acc[2 * p], lo[ks], bv[0], bv[1]);
+          mma(acc[2 * p + 1], lo[ks], bv[2], bv[3]);
+        }
         mma(acc[2 * p], a[ks], bv[0], bv[1]);
         mma(acc[2 * p + 1], a[ks], bv[2], bv[3]);
       }
@@ -302,17 +349,35 @@ folded_context_partial(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+__global__ void __launch_bounds__(k12::NTHREADS, 2)
+folded_context_partial(const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, int n, int range_tiles,
+                       float* __restrict__ part_m, float* __restrict__ part_s,
+                       float* __restrict__ part_ctx) {
+  context_tiles<false>(k_map, v_map, n, range_tiles, part_m, part_s, part_ctx);
+}
+
+__global__ void __launch_bounds__(k12::NTHREADS, 2)
+linear_context_partial(const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, int n, int range_tiles,
+                       float* __restrict__ part_m, float* __restrict__ part_s,
+                       float* __restrict__ part_ctx) {
+  context_tiles<true>(k_map, v_map, n, range_tiles, part_m, part_s, part_ctx);
+}
+
 // ---------------------------------------------------------------------------
-// K1, pass 2: per (head, 8-row slab, batch) merge of the ranges' slots in
-// order, seeded with the memory tokens, divided by the column sums; writes the
-// full [128, 128] rows with zeros off the head's diagonal block.
+// K1 and K4a, pass 2: per (head, 8-row slab, batch) merge of the ranges' slots
+// in order, seeded with the n_mem memory tokens (K1; none for K4a), divided by
+// the column sums. FOLDED (K1) writes the full [128, 128] rows with zeros off
+// the head's diagonal block; else (K4a) the head's [32, 32] block of [B, h, d, d].
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-folded_context_combine(const float* __restrict__ part_m, const float* __restrict__ part_s,
-                       const float* __restrict__ part_ctx,
-                       const __nv_bfloat16* __restrict__ mem_k,
-                       const __nv_bfloat16* __restrict__ mem_v, int n_mem,
-                       int n_chunks, float* __restrict__ ctx) {
+template <bool FOLDED>
+__device__ __forceinline__ void combine_slots(const float* __restrict__ part_m,
+                                              const float* __restrict__ part_s,
+                                              const float* __restrict__ part_ctx,
+                                              const __nv_bfloat16* __restrict__ mem_k,
+                                              const __nv_bfloat16* __restrict__ mem_v, int n_mem,
+                                              int n_chunks, float* __restrict__ ctx) {
   const int slabs = DH / COMBINE_ROWS;
   const int h = blockIdx.x / slabs, slab = blockIdx.x % slabs, b = blockIdx.y;
   const int t = threadIdx.x;
@@ -341,32 +406,57 @@ folded_context_combine(const float* __restrict__ part_m, const float* __restrict
     acc = fmaf(part_ctx[((slot * NH + h) * DH + d) * DH + e], w, acc);
   }
 
-  float* row = ctx + ((long long)b * HD + kc) * HD;
+  if constexpr (FOLDED) {
+    float* row = ctx + ((long long)b * HD + kc) * HD;
 #pragma unroll
-  for (int hh = 0; hh < NH; ++hh) row[hh * DH + e] = (hh == h) ? acc / s : 0.f;
+    for (int hh = 0; hh < NH; ++hh) row[hh * DH + e] = (hh == h) ? acc / s : 0.f;
+  } else {
+    ctx[(((long long)b * NH + h) * DH + d) * DH + e] = acc / s;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+folded_context_combine(const float* __restrict__ part_m, const float* __restrict__ part_s,
+                       const float* __restrict__ part_ctx,
+                       const __nv_bfloat16* __restrict__ mem_k,
+                       const __nv_bfloat16* __restrict__ mem_v, int n_mem,
+                       int n_chunks, float* __restrict__ ctx) {
+  combine_slots<true>(part_m, part_s, part_ctx, mem_k, mem_v, n_mem, n_chunks, ctx);
+}
+
+__global__ void __launch_bounds__(THREADS)
+linear_context_combine(const float* __restrict__ part_m, const float* __restrict__ part_s,
+                       const float* __restrict__ part_ctx, int n_chunks,
+                       float* __restrict__ ctx) {
+  combine_slots<false>(part_m, part_s, part_ctx, nullptr, nullptr, 0, n_chunks, ctx);
 }
 
 // ---------------------------------------------------------------------------
-// K2: out = groupsoftmax(q) * scale @ ctx. Block (x, b) walks the 128-row
-// tiles x, x + gridDim.x, ... of batch item b; ctx's diagonal blocks are
-// staged once, rounded to bf16.
+// K2 and K4b: out = groupsoftmax(q) * scale @ ctx. Block (x, b) walks the
+// 128-row tiles x, x + gridDim.x, ... of batch item b through a ring of
+// STAGES; ctx's diagonal blocks are staged once, rounded to bf16 (K2: ctx
+// [B, 128, 128]) or split into c_hi and c_lo (SPLIT, K4b: ctx [B, 4, 32, 32]),
+// and p is rounded (K2) or split into p_hi + p_lo (K4b).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(k12::NTHREADS, 2)
-folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restrict__ ctx,
-               __nv_bfloat16* __restrict__ out, int n, float scale) {
+template <bool SPLIT, int STAGES>
+__device__ __forceinline__ void project_tiles(const CUtensorMap& q_map,
+                                              const float* __restrict__ ctx,
+                                              __nv_bfloat16* __restrict__ out, int n,
+                                              float scale) {
   using namespace k12;
   using namespace mma_async;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[PROJ_STAGES], empty[PROJ_STAGES];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   __nv_bfloat16* ring = ring_base(smem_raw);
-  __nv_bfloat16* ctx_s = ring + PROJ_STAGES * PROJ_STAGE;  // [NH][DH][LDC]
+  __nv_bfloat16* ctx_s = ring + STAGES * PROJ_STAGE;  // [NH][DH][LDC]: c, or c_hi
+  __nv_bfloat16* ctx_lo = ctx_s + CTX_COPY;           // K4b: c_lo
   const int b = blockIdx.y, t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int tiles = (n + PROJ_TILE - 1) / PROJ_TILE;
   const int mine = tiles > static_cast<int>(blockIdx.x)
                        ? (tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1 : 0;
 
   if (t == 0) {
-    for (int j = 0; j < PROJ_STAGES; ++j) {
+    for (int j = 0; j < STAGES; ++j) {
       mbar_init(&full[j], 1);
       mbar_init(&empty[j], CONSUMERS);
     }
@@ -377,7 +467,7 @@ folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restric
   if (warp == CONSUMERS) {  // the producer
     if (lane == 0) {
       for (int s = 0; s < mine; ++s) {
-        const int j = s % PROJ_STAGES, pass = s / PROJ_STAGES;
+        const int j = s % STAGES, pass = s / STAGES;
         if (pass > 0) mbar_wait(&empty[j], (pass - 1) & 1);
         __nv_bfloat16* st = ring + j * PROJ_STAGE;
         const int row0 = (blockIdx.x + s * gridDim.x) * PROJ_TILE;
@@ -389,10 +479,14 @@ folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restric
     return;
   }
 
-  const float* cb = ctx + (long long)b * HD * HD;
+  const float* cb = ctx + (long long)b * (SPLIT ? NH * DH * DH : HD * HD);
   for (int i = t; i < NH * DH * DH; i += 32 * CONSUMERS) {
     const int hh = i / (DH * DH), d = (i / DH) % DH, e = i % DH;
-    ctx_s[(hh * DH + d) * LDC + e] = __float2bfloat16(cb[(hh * DH + d) * HD + hh * DH + e]);
+    const float c = SPLIT ? cb[i] : cb[(hh * DH + d) * HD + hh * DH + e];
+    const __nv_bfloat16 hi = __float2bfloat16(c);
+    const int at = (hh * DH + d) * LDC + e;
+    ctx_s[at] = hi;
+    if constexpr (SPLIT) ctx_lo[at] = __float2bfloat16(c - __bfloat162float(hi));
   }
   bar_sync(1, 32 * CONSUMERS);  // ctx_s is staged
 
@@ -406,8 +500,8 @@ folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restric
   __nv_bfloat16* ob = out + (long long)b * n * HD;
 
   for (int s = 0; s < mine; ++s) {
-    const int j = s % PROJ_STAGES;
-    mbar_wait(&full[j], (s / PROJ_STAGES) & 1);
+    const int j = s % STAGES;
+    mbar_wait(&full[j], (s / STAGES) & 1);
     __nv_bfloat16* st = ring + j * PROJ_STAGE;
     const int row0 = (blockIdx.x + s * gridDim.x) * PROJ_TILE;
 #pragma unroll
@@ -442,11 +536,15 @@ folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restric
       float f[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c) f[c] = scale / quad_sum(sum[c]);
+      uint32_t lo[SPLIT ? 2 : 1][4];  // K4b: p - p_hi in bf16
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[ks][i] = pack_bf16(x[ks][i][0] * f[i & 1], x[ks][i][1] * f[i & 1]);
+        for (int i = 0; i < 4; ++i) {
+          const float p0 = x[ks][i][0] * f[i & 1], p1 = x[ks][i][1] * f[i & 1];
+          a[ks][i] = pack_bf16(p0, p1);
+          if constexpr (SPLIT) lo[ks][i] = pack_bf16_rest(p0, p1, a[ks][i]);
+        }
 
       float acc[4][4];
 #pragma unroll
@@ -460,6 +558,14 @@ folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restric
         for (int p = 0; p < 2; ++p) {
           uint32_t bc[4];
           ldmatrix_x4_trans(bc, ch + 16 * ks * LDC + 16 * p);
+          if constexpr (SPLIT) {  // the small terms first: p_lo.c_hi, p_hi.c_lo
+            uint32_t cl[4];
+            ldmatrix_x4_trans(cl, ch + CTX_COPY + 16 * ks * LDC + 16 * p);
+            mma(acc[2 * p], lo[ks], bc[0], bc[1]);
+            mma(acc[2 * p + 1], lo[ks], bc[2], bc[3]);
+            mma(acc[2 * p], a[ks], cl[0], cl[1]);
+            mma(acc[2 * p + 1], a[ks], cl[2], cl[3]);
+          }
           mma(acc[2 * p], a[ks], bc[0], bc[1]);
           mma(acc[2 * p + 1], a[ks], bc[2], bc[3]);
         }
@@ -488,26 +594,33 @@ folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restric
   }
 }
 
+__global__ void __launch_bounds__(k12::NTHREADS, 2)
+folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restrict__ ctx,
+               __nv_bfloat16* __restrict__ out, int n, float scale) {
+  project_tiles<false, k12::PROJ_STAGES>(q_map, ctx, out, n, scale);
+}
+
+__global__ void __launch_bounds__(k12::NTHREADS, 2)
+linear_project_tiles(const __grid_constant__ CUtensorMap q_map, const float* __restrict__ ctx,
+                     __nv_bfloat16* __restrict__ out, int n, float scale) {
+  project_tiles<true, k12::V1_PROJ_STAGES>(q_map, ctx, out, n, scale);
+}
+
 // ===========================================================================
 // The general path: one (batch, head) pair per block row of the grid, any
 // number of heads, any head width d with d % 8 == 0, bf16 or f32 operands,
 // each read in place through its batch, token and head strides.
 //
-// It serves two pairs of TPU kernels:
-//   * K1 and K2 beyond the 4 x 32 bf16 specialisation above (folded layout
-//     [B, N, h*d], head stride d; K1 keeps only the per-head diagonal blocks,
-//     which is exactly a per-(batch, head) context; round_bf16 = 1);
-//   * K4a and K4b, the v1 linear attention, which replace
-//     flowtrain_stochastic_interpolation_tpu/ops/linear_attention.py
-//     _context_kernel (called from _linear_attn_fwd_bhnd):
-//         ctx = softmax over tokens of k, per column, ^T . v
-//     with no memory-token seed (the caller concatenated the memory tokens
-//     into k and v, so they are the first rows), everything in f32; and
-//     _project_kernel:
-//         out = softmax_d(q) * d^-1/2 @ ctx
-//     in f32, output in q's dtype (round_bf16 = 0). q is read from the
-//     [B, N, 3, h, d] projection and k, v from the [B, M, h, d]
-//     concatenations in place: the TPU's [B*h, N, d] transposes are gone.
+// It serves the four kernels beyond the 4 x 32 bf16 specialisation above:
+//   * K1 and K2 (folded layout [B, N, h*d], head stride d; K1 keeps only the
+//     per-head diagonal blocks, which is exactly a per-(batch, head) context;
+//     round_bf16 = 1);
+//   * K4a and K4b, the v1 linear attention (see the note at the top), with
+//     no memory-token seed and everything in f32 on the FP32 cores, output in
+//     q's dtype (round_bf16 = 0); in f32, at other head counts or widths, or
+//     with the heads not side by side. q is read from the [B, N, 3, h, d]
+//     projection and k, v from the [B, M, h, d] concatenations in place: the
+//     TPU's [B*h, N, d] transposes are gone.
 //
 // The head width is a template bucket (32, 64 or 128) with the actual d
 // masked at run time: columns at or past d are loaded as k = -inf, v = 0 and
@@ -518,11 +631,11 @@ folded_project(const __grid_constant__ CUtensorMap q_map, const float* __restric
 // independent; a tile recomputes exp(k - m) for its k columns once per
 // v-column tile); the projection runs project_wide, below.
 //
-// Bound on the H100: at b8 x 64^3 with 4 heads x 32, bf16, the context reads
-// k and v (2 x 537 MB) and the projection reads q and writes out (2 x 537
-// MB): about 0.32 ms each at 3.35 TB/s, against 17 GFLOP of f32 products
-// (0.26 ms at the 67 TFLOP/s of the FP32 cores): both are memory-bound, with
-// the products close behind.
+// Bound on the H100: at b8 x 64^3 with 4 heads x 32 (which the specialisation
+// serves in bf16), the context reads k and v (2 x 537 MB in bf16) and the
+// projection reads q and writes out: about 0.32 ms each at 3.35 TB/s (twice
+// that in f32), against 17 GFLOP of f32 products (0.26 ms at the 67 TFLOP/s
+// of the FP32 cores): memory-bound, with the products close behind.
 //
 // What the design does about it: the context is a partial pass over
 // (token chunk, batch*head), reading each k and v row once, keeping exp(k - m)
@@ -1070,7 +1183,7 @@ int launch_project_wide(const void* q, long long q_bs, long long q_ts, long long
 }
 
 // ---------------------------------------------------------------------------
-// Launching K1 and K2 on 4 x 32 bf16
+// Launching K1, K2, K4a and K4b on 4 x 32 bf16
 // ---------------------------------------------------------------------------
 constexpr int MAX_DEVICES = 64;
 
@@ -1116,13 +1229,16 @@ int folded_map(CUtensorMap* map, const void* t, long long ld, long long bs, int 
   return mma_async::bf16_tensor_map(map, t, 3, dims, strides, box);
 }
 
-// K1's token ranges: each block walks range_tiles tiles of 64 tokens of one
-// batch item, and the ranges of all batch items fill the card once.
+// The token ranges of K1 (K4a with SPLIT): each block walks range_tiles tiles
+// of 64 tokens of one batch item, and the ranges of all batch items fill the
+// card once.
+template <bool SPLIT>
 int context_ranges(int batch, int n, int* range_tiles, int* slots) {
   static int cache[MAX_DEVICES] = {};
   int blocks = 0;
-  const int err = card_blocks(reinterpret_cast<const void*>(folded_context_partial),
-                              k12::CTX_SMEM, cache, &blocks);
+  const void* kernel = SPLIT ? reinterpret_cast<const void*>(linear_context_partial)
+                             : reinterpret_cast<const void*>(folded_context_partial);
+  const int err = card_blocks(kernel, k12::CTX_SMEM, cache, &blocks);
   if (err) return err;
   const long long tiles = (n + k12::CTX_TILE - 1) / k12::CTX_TILE;
   const long long per_range = (tiles * batch + blocks - 1) / blocks;
@@ -1141,7 +1257,7 @@ extern "C" {
 int folded_context_slots(int batch, int n, int* err) {
   int range_tiles = 0, slots = 0;
   *err = batch < 1 || n < 1 ? static_cast<int>(cudaErrorInvalidValue)
-                            : context_ranges(batch, n, &range_tiles, &slots);
+                            : context_ranges<false>(batch, n, &range_tiles, &slots);
   return *err ? -1 : slots;
 }
 
@@ -1158,7 +1274,7 @@ int folded_context_forward(const void* k, const void* v, long long k_ld, long lo
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   int range_tiles = 0, slots = 0;
-  int err = context_ranges(batch, n, &range_tiles, &slots);
+  int err = context_ranges<false>(batch, n, &range_tiles, &slots);
   CUtensorMap k_map, v_map;
   if (!err) err = folded_map(&k_map, k, k_ld, k_bs, batch, n, k12::CTX_TILE);
   if (!err) err = folded_map(&v_map, v, v_ld, v_bs, batch, n, k12::CTX_TILE);
@@ -1198,7 +1314,68 @@ int folded_project_forward(const void* q, long long q_ld, long long q_bs, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The general context (K1 beyond 4 x 32 bf16, and K4a): ctx from k, v
+// K4a on 4 x 32 bf16: the partial slots per batch item that
+// linear_context_forward uses for this shape, or -1 with *err set to a CUDA
+// error code.
+int linear_context_slots(int batch, int n, int* err) {
+  int range_tiles = 0, slots = 0;
+  *err = batch < 1 || n < 1 ? static_cast<int>(cudaErrorInvalidValue)
+                            : context_ranges<true>(batch, n, &range_tiles, &slots);
+  return *err ? -1 : slots;
+}
+
+// K4a: ctx [batch, 4, 32, 32] f32 from k, v [batch, n, 4, 32] bf16 with the
+// heads side by side (token stride k_ld / v_ld elements, batch stride k_bs /
+// v_bs, all multiples of 8, rows 16-byte aligned). part_m, part_s [batch,
+// slots, 128] and part_ctx [batch, slots, 4, 32, 32] f32 are scratch, with
+// slots from linear_context_slots. Returns cudaGetLastError() after the two
+// launches, or the error of a tensor map the TMA cannot take.
+int linear_context_forward(const void* k, const void* v, long long k_ld, long long v_ld,
+                           long long k_bs, long long v_bs, int batch, int n, void* part_m,
+                           void* part_s, void* part_ctx, void* ctx, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int range_tiles = 0, slots = 0;
+  int err = context_ranges<true>(batch, n, &range_tiles, &slots);
+  CUtensorMap k_map, v_map;
+  if (!err) err = folded_map(&k_map, k, k_ld, k_bs, batch, n, k12::CTX_TILE);
+  if (!err) err = folded_map(&v_map, v, v_ld, v_bs, batch, n, k12::CTX_TILE);
+  if (err) return err;
+  linear_context_partial<<<dim3(slots, batch), k12::NTHREADS, k12::CTX_SMEM, s>>>(
+      k_map, v_map, n, range_tiles, static_cast<float*>(part_m), static_cast<float*>(part_s),
+      static_cast<float*>(part_ctx));
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  linear_context_combine<<<dim3(NH * (DH / COMBINE_ROWS), batch), THREADS, 0, s>>>(
+      static_cast<const float*>(part_m), static_cast<const float*>(part_s),
+      static_cast<const float*>(part_ctx), slots, static_cast<float*>(ctx));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4b: out [batch, n, 4, 32] bf16 (contiguous) from q [batch, n, 4, 32] bf16
+// with the heads side by side (token stride q_ld, batch stride q_bs,
+// multiples of 8, rows 16-byte aligned) and ctx [batch, 4, 32, 32] f32.
+// Returns cudaGetLastError() after the launch, or the error of a tensor map
+// the TMA cannot take.
+int linear_project_forward(const void* q, long long q_ld, long long q_bs, const void* ctx,
+                           void* out, int batch, int n, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  static int cache[MAX_DEVICES] = {};
+  int blocks = 0;
+  int err = card_blocks(reinterpret_cast<const void*>(linear_project_tiles), k12::V1_PROJ_SMEM,
+                        cache, &blocks);
+  CUtensorMap q_map;
+  if (!err) err = folded_map(&q_map, q, q_ld, q_bs, batch, n, k12::PROJ_TILE);
+  if (err) return err;
+  const int tiles = (n + k12::PROJ_TILE - 1) / k12::PROJ_TILE;
+  const int per_item = std::max(1, std::min(tiles, (blocks + batch - 1) / batch));
+  linear_project_tiles<<<dim3(per_item, batch), k12::NTHREADS, k12::V1_PROJ_SMEM, s>>>(
+      q_map, static_cast<const float*>(ctx), static_cast<__nv_bfloat16*>(out), n, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The general context (K1 and K4a beyond 4 x 32 bf16): ctx from k, v
 // [batch, n, heads, d] (bf16 if is_f32 == 0, else f32) given by their batch,
 // token and head strides in elements (d contiguous, rows 16-byte aligned).
 // width = d: ctx [batch*heads, d, d] f32 (K4a; n_mem = 0, mem_k = mem_v =
@@ -1234,7 +1411,7 @@ int context_forward(const void* k, const void* v, int is_f32, long long k_bs, lo
 #undef FT_CONTEXT
 }
 
-// The general projection (K2 beyond 4 x 32 bf16, and K4b): out [batch, n,
+// The general projection (K2 and K4b beyond 4 x 32 bf16): out [batch, n,
 // heads, d] (contiguous, in q's dtype) = softmax_d(q) * scale @ ctx, with q
 // [batch, n, heads, d] given by its strides and the d x d block of (b, h) at
 // ctx + b*c_bs + h*c_hs, rows c_ld apart (f32). round_bf16 rounds p and ctx

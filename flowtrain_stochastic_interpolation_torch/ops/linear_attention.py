@@ -31,9 +31,10 @@ k and v that already hold the memory tokens:
 
 The kernels take bf16 or f32 operands and any head width d that is a
 multiple of 8 (above 128 in column tiles of 128); the roundings above hold
-whatever the operands' dtype. K1 and K2 have a specialisation for 4 heads × 32
-in bf16 (the flagship's layer: TMA rings and tensor-core products) and a
-general path per (batch, head) for the rest, which K4a and K4b share.
+whatever the operands' dtype. All four have a specialisation for 4 heads × 32
+in bf16 (the flagship's layer: TMA rings and tensor-core products; K4a and
+K4b keep f32 products by splitting each f32 operand into two bf16 terms,
+``x_hi + x_lo``) and a general path per (batch, head) for the rest.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and only
 then. For CUDA tensors it launches the hand-written kernel in
@@ -47,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import math
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -58,7 +60,7 @@ from flowtrain_stochastic_interpolation_torch.ops.flash_attention import (
 )
 
 SOURCE = "linear_attention"
-_SPECIALISED = (4, 32)  # heads, d of the bf16 specialisation of K1 and K2
+_SPECIALISED = (4, 32)  # heads, d of the bf16 specialisation of K1, K2, K4a and K4b
 _WIDE_ROWS = 32         # rows per tile of the projection at d > 128 (WIDE_ROWS)
 
 launch_counts: Dict[str, int] = {
@@ -165,6 +167,12 @@ def _library() -> ctypes.CDLL:
         vp, i32, ll, ll, ll, vp, ll, ll, ll, vp, i32, i32, i32, i32, i32, i32, f32, vp,
     ]
     lib.project_forward.restype = i32
+    lib.linear_context_slots.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.linear_context_slots.restype = i32
+    lib.linear_context_forward.argtypes = [vp, vp, ll, ll, ll, ll, i32, i32, vp, vp, vp, vp, vp]
+    lib.linear_context_forward.restype = i32
+    lib.linear_project_forward.argtypes = [vp, ll, ll, vp, vp, i32, i32, f32, vp]
+    lib.linear_project_forward.restype = i32
     return lib
 
 
@@ -304,13 +312,56 @@ def _raw_stream(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def _folded_slots(device_index: int, b: int, n: int) -> int:
-    """K1's partial slots per batch item at this shape on the current card, as
-    the C entry point will use them (its token ranges fill the card once)."""
+def _partial_slots(entry: str, device_index: int, b: int, n: int) -> int:
+    """The partial slots per batch item of K1 (``entry`` ``folded_context_slots``)
+    or K4a (``linear_context_slots``) at this shape on the current card, as the
+    C entry point will use them (its token ranges fill the card once)."""
     err = ctypes.c_int(0)
-    slots = _library().folded_context_slots(b, n, ctypes.byref(err))
-    _raise_on(err.value, "folded_context_slots")
+    slots = getattr(_library(), entry)(b, n, ctypes.byref(err))
+    _raise_on(err.value, entry)
     return slots
+
+
+def _context_4x32(kernel: str, k: torch.Tensor, v: torch.Tensor, ctx_shape: Sequence[int],
+                  *mem_args) -> torch.Tensor:
+    """K1 (``kernel`` ``folded_context``, with the memory tokens' arguments) or
+    K4a (``linear_context``) on 4 × 32 bf16 operands laid out as ``[B, M, 128]``.
+    One allocation holds ctx, then the scratch: m and s ``[b, slots, 128]`` and
+    the diagonal blocks ``[b, slots, 4, 32, 32]``."""
+    b, n = k.shape[:2]
+    hd, d = _SPECIALISED[0] * _SPECIALISED[1], _SPECIALISED[1]
+    lib = _library()
+    with _current(k.device):
+        slots = _partial_slots(f"{kernel}_slots", k.device.index, b, n)
+        stats = b * slots * hd
+        size = math.prod(ctx_shape)
+        buf = torch.empty(size + (2 + d) * stats, dtype=torch.float32, device=k.device)
+        ctx = buf[:size].view(*ctx_shape)  # unpacked: a tuple costs µs more to parse
+        part = buf.data_ptr() + 4 * size
+        code = getattr(lib, f"{kernel}_forward")(
+            k.data_ptr(), v.data_ptr(), k.stride(1), v.stride(1), k.stride(0), v.stride(0),
+            *mem_args, b, n, part, part + 4 * stats, part + 8 * stats, ctx.data_ptr(),
+            _raw_stream(k.device),
+        )
+    _raise_on(code, kernel)
+    return ctx
+
+
+def _project_4x32(kernel: str, q: torch.Tensor, ctx: torch.Tensor,
+                  out_shape: Sequence[int]) -> torch.Tensor:
+    """K2 (``kernel`` ``folded_project``) or K4b (``linear_project``) on 4 × 32
+    bf16 q laid out as ``[B, N, 128]``: out contiguous, in q's dtype."""
+    b, n = q.shape[:2]
+    with _current(q.device):
+        out = torch.empty(*out_shape, dtype=q.dtype, device=q.device)
+        if n == 0:
+            return out
+        code = getattr(_library(), f"{kernel}_forward")(
+            q.data_ptr(), q.stride(1), q.stride(0), ctx.data_ptr(), out.data_ptr(), b, n,
+            _SPECIALISED[1]**-0.5, _raw_stream(q.device),
+        )
+    _raise_on(code, kernel)
+    return out
 
 
 def _folded_head_dim(t: torch.Tensor, heads: int) -> int:
@@ -324,6 +375,15 @@ def _folded_head_dim(t: torch.Tensor, heads: int) -> int:
 def _specialised(t: torch.Tensor, heads: int) -> bool:
     """The 4 × 32 bf16 specialisation of K1 and K2 serves this call."""
     return t.dtype == torch.bfloat16 and (heads, t.shape[-1] // heads) == _SPECIALISED
+
+
+def _v1_specialised(*tensors: torch.Tensor) -> bool:
+    """The 4 × 32 bf16 specialisation of K4a and K4b serves these ``[B, M, h, d]``
+    operands: bf16, 4 heads of 32 side by side (head stride 32), so that each
+    token's row is one ``[128]`` run, read as K1 and K2 read the folded layout.
+    (``_check_operand`` has made the token and batch strides multiples of 8.)"""
+    return all(t.dtype == torch.bfloat16 and tuple(t.shape[2:]) == _SPECIALISED
+               and t.stride(2) == _SPECIALISED[1] for t in tensors)
 
 
 def folded_context(k: torch.Tensor, v: torch.Tensor, mem_k: torch.Tensor,
@@ -348,26 +408,12 @@ def folded_context(k: torch.Tensor, v: torch.Tensor, mem_k: torch.Tensor,
         raise ValueError("mem_k and mem_v must have the same shape")
     if n < 1:
         raise ValueError("k must hold at least one token")
-    if not _specialised(k, heads):
+    if _specialised(k, heads):
+        ctx = _context_4x32("folded_context", k, v, (b, hd, hd), mem_k.data_ptr(),
+                            mem_v.data_ptr(), mem_k.shape[0])
+    else:
         ctx = _context(k, v, (k.stride(0), k.stride(1), d), (v.stride(0), v.stride(1), d),
                        heads, d, mem_k, mem_v, round_bf16=True)
-        launch_counts["folded_context"] += 1
-        return ctx
-    lib = _library()
-    with _current(k.device):
-        slots = _folded_slots(k.device.index, b, n)
-        # one allocation: ctx [b, hd, hd], then the scratch: m and s [b, slots,
-        # hd] and the diagonal blocks [b, slots, h, d, d]
-        stats = b * slots * hd
-        buf = torch.empty(b * hd * hd + (2 + d) * stats, dtype=torch.float32, device=k.device)
-        ctx = buf[:b * hd * hd].view(b, hd, hd)
-        part = buf.data_ptr() + 4 * b * hd * hd
-        code = lib.folded_context_forward(
-            k.data_ptr(), v.data_ptr(), k.stride(1), v.stride(1), k.stride(0), v.stride(0),
-            mem_k.data_ptr(), mem_v.data_ptr(), mem_k.shape[0], b, n, part, part + 4 * stats,
-            part + 8 * stats, ctx.data_ptr(), _raw_stream(k.device),
-        )
-    _raise_on(code, "folded_context")
     launch_counts["folded_context"] += 1
     return ctx
 
@@ -380,22 +426,12 @@ def folded_project(q: torch.Tensor, ctx: torch.Tensor, heads: int) -> torch.Tens
     _check_operand("q", q, q, 3)
     b, n, hd = q.shape
     _check_ctx(ctx, q, (b, hd, hd))
-    if not _specialised(q, heads):
+    if _specialised(q, heads):
+        out = _project_4x32("folded_project", q, ctx, (b, n, hd))
+    else:
         out = _project(q, (q.stride(0), q.stride(1), d), ctx, (hd * hd, d * hd + d, hd),
                        heads, d, round_bf16=True)
-        launch_counts["folded_project"] += 1
-        return out
-    lib = _library()
-    with _current(q.device):
-        out = torch.empty(b, n, hd, dtype=q.dtype, device=q.device)
-        if n == 0:
-            return out
-        code = lib.folded_project_forward(
-            q.data_ptr(), q.stride(1), q.stride(0), ctx.data_ptr(), out.data_ptr(), b, n,
-            d**-0.5, _raw_stream(q.device),
-        )
-    _raise_on(code, "folded_project")
-    launch_counts["folded_project"] += 1
+    launch_counts["folded_project"] += int(n > 0)
     return out
 
 
@@ -412,7 +448,10 @@ def linear_context(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     check_head_dim(d)
     if m < 1:
         raise ValueError("k must hold at least one token")
-    ctx = _context(k, v, k.stride()[:3], v.stride()[:3], h, d, None, None, round_bf16=False)
+    if _v1_specialised(k, v):
+        ctx = _context_4x32("linear_context", k, v, (b, h, d, d))
+    else:
+        ctx = _context(k, v, k.stride()[:3], v.stride()[:3], h, d, None, None, round_bf16=False)
     launch_counts["linear_context"] += 1
     return ctx
 
@@ -425,9 +464,13 @@ def linear_project(q: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
     b, n, h, d = q.shape
     check_head_dim(d)
     _check_ctx(ctx, q, (b, h, d, d))
-    out = _project(q, q.stride()[:3], ctx, (h * d * d, d * d, d), h, d, round_bf16=False)
-    launch_counts["linear_project"] += 1
-    return out.view(b, n, h, d)
+    if _v1_specialised(q):
+        out = _project_4x32("linear_project", q, ctx, (b, n, h, d))
+    else:
+        out = _project(q, q.stride()[:3], ctx, (h * d * d, d * d, d), h, d,
+                       round_bf16=False).view(b, n, h, d)
+    launch_counts["linear_project"] += int(n > 0)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -66,3 +66,20 @@ def test_tap_conv_forward_at_the_train_shape_is_bound_by_operations():
     ms, by = chip_smoke.bound(*chip_smoke.conv_work(8 * 64**3, 48, 48))
     assert by == "operations"
     assert ms == pytest.approx(0.2638, abs=1e-4)
+
+
+@pytest.mark.parametrize("work,n,expected", [
+    (chip_smoke.v1_context_work, 262144, 0.3206), (chip_smoke.v1_context_work, 32768, 0.0401),
+    (chip_smoke.v1_project_work, 262144, 0.3206), (chip_smoke.v1_project_work, 32768, 0.0401),
+])
+def test_v1_linear_attention_is_bound_by_bytes(work, n, expected):
+    """K4a and K4b at b8 × 64³ and 32³ × 4 heads × 32, with M = N + 4 keys (the
+    memory tokens): k and v (K4a), or q and the output (K4b), in bf16 and the
+    f32 [B, 4, 32, 32] ctx over 3.35 TB/s. Their f32 products, counted at the
+    FP32 cores' 67 TF/s (0.2564 ms at 64³ for K4a), and their exponentials
+    take less time."""
+    nbytes, flops, exps = work(B, n)
+    ms, by = chip_smoke.bound(nbytes, flops, chip_smoke.PEAK_F32_FLOP_PER_S, exps)
+    assert by == "bytes"
+    assert ms == pytest.approx(expected, abs=1e-4)
+    assert flops / chip_smoke.PEAK_F32_FLOP_PER_S * 1e3 < ms

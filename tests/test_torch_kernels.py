@@ -118,9 +118,10 @@ def test_flash_variants_of_the_ab_tool_still_apply_to_the_source():
 
 
 def test_linear_attention_variants_of_the_ab_tool_still_apply_to_the_source():
-    """tools/ab_linear_attention.py builds K1 and K2 variants by substituting
-    lines of csrc/linear_attention.cu: each substitution must still find its line."""
-    for subs, _ in ab_la.VARIANTS.values():
+    """tools/ab_linear_attention.py builds K1, K2, K4a and K4b variants by
+    substituting lines of csrc/linear_attention.cu: each substitution must still
+    find its line."""
+    for subs, *_ in ab_la.VARIANTS.values():
         assert variants.variant_source(la.SOURCE, subs) != variants.variant_source(la.SOURCE, [])
 
 
@@ -409,9 +410,10 @@ def test_widened_flash_kernel_matches_plain_version(cuda, d, dtype):
 
 
 def _v1_operands(batch, n, heads, d, device, seed=0, dtype=torch.bfloat16, k_scale=1.0,
-                 mem_shift=0.0):
-    """q as a slice of a [B, N, 3, h, d] projection, and k, v [B, 4 + N, h, d]
-    with 4 memory tokens first (shifted up by ``mem_shift`` in k)."""
+                 mem_shift=0.0, contiguous=False):
+    """q as a slice of a [B, N, 3, h, d] projection (contiguous with
+    ``contiguous``), and k, v [B, 4 + N, h, d] with 4 memory tokens first
+    (shifted up by ``mem_shift`` in k)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     qkv = torch.randn(batch, n, 3, heads, d, generator=gen, device=device)
     qkv[:, :, 1] *= k_scale
@@ -419,13 +421,16 @@ def _v1_operands(batch, n, heads, d, device, seed=0, dtype=torch.bfloat16, k_sca
     mem[0] += mem_shift
     qkv, mem = qkv.to(dtype), mem.to(dtype)
     cat = lambda i: torch.cat([mem[i].expand(batch, -1, -1, -1), qkv[:, :, i + 1]], dim=1)
-    return qkv[:, :, 0], cat(0), cat(1)
+    q = qkv[:, :, 0]
+    return q.contiguous() if contiguous else q, cat(0), cat(1)
 
 
 def _assert_v1_close(got, want):
-    """K4a and K4b against their plain versions: both sides compute in f32 and
-    differ only in the order of the sums and in the chunk max, so one bf16 ulp
-    (2^-7·|plain|) plus 1e-3·RMS elementwise and 4e-3 in relative L2."""
+    """K4a and K4b against their plain versions: the plain versions compute in
+    f32; the kernels compute in f32 (the general path) or take each f32
+    product through bf16 terms within 2^-16 of it (3·2^-16 for K4b; 4 x 32
+    bf16), and differ in the order of the sums and in the range max, so one
+    bf16 ulp (2^-7·|plain|) plus 1e-3·RMS elementwise and 4e-3 in relative L2."""
     got, want = got.float(), want.float()
     rms = want.square().mean().sqrt().item()
     torch.testing.assert_close(got, want, rtol=2.0**-7, atol=1e-3 * rms)
@@ -441,10 +446,15 @@ def _assert_v1_close(got, want):
     (1, 32768, 4, 32, torch.float32, {}),
     (1, 4096 + 37, 2, 8, torch.bfloat16, {}),
     (1, 4096 + 37, 2, 48, torch.bfloat16, {}),
+    (1, 4096 + 37, 2, 64, torch.bfloat16, {}),
     (1, 4096 + 37, 1, 128, torch.float32, {}),
 ])
 def test_v1_kernels_match_plain_versions(cuda, batch, n, heads, d, dtype, options):
+    """The 4 x 32 bf16 kernels where the shape and dtype take them, else the
+    general path (f32, other heads or widths)."""
     q, k, v = _v1_operands(batch, n, heads, d, cuda, seed=n + d, dtype=dtype, **options)
+    specialised = dtype == torch.bfloat16 and (heads, d) == (4, 32)
+    assert la._v1_specialised(k, v) == la._v1_specialised(q) == specialised
     la.reset_launch_counts()
     ctx = la.linear_context(k, v)
     ctx_plain = la.linear_context_plain(k, v)
@@ -456,6 +466,30 @@ def test_v1_kernels_match_plain_versions(cuda, batch, n, heads, d, dtype, option
     assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
     _assert_v1_close(ctx, ctx_plain)
     _assert_v1_close(out, out_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n,contiguous", [
+    (1, 1, False), (8, 1, False),    # M = 5: one query token and the memory tokens
+    (1, 32768 + 37, False),          # ragged, batch 1
+    (8, 32768, True),                # q contiguous beside the projection's slice
+    (2, 4096 + 37, True),
+])
+def test_v1_4x32_kernels_match_plain_versions_and_repeat(cuda, batch, n, contiguous):
+    """K4a and K4b on 4 x 32 bf16 heads at their edges, each launched twice
+    with bit-identical outputs (a fixed order of sums, no atomics)."""
+    q, k, v = _v1_operands(batch, n, 4, 32, cuda, seed=n + batch, contiguous=contiguous)
+    assert la._v1_specialised(k, v) and la._v1_specialised(q)
+    la.reset_launch_counts()
+    ctx, ctx_again = la.linear_context(k, v), la.linear_context(k, v)
+    ctx_plain = la.linear_context_plain(k, v)
+    out, out_again = la.linear_project(q, ctx_plain), la.linear_project(q, ctx_plain)
+    torch.cuda.synchronize()
+    assert la.launch_counts == _launched(linear_context=2, linear_project=2)
+    assert ctx.shape == (batch, 4, 32, 32) and out.shape == q.shape and out.is_contiguous()
+    assert torch.equal(ctx, ctx_again) and torch.equal(out, out_again)
+    _assert_v1_close(ctx, ctx_plain)
+    _assert_v1_close(out, la.linear_project_plain(q, ctx_plain))
 
 
 @pytest.mark.gpu
