@@ -10,7 +10,8 @@ Phases, each printed on one flushed line with the seconds since start:
 1. build: one nvcc call per source (``csrc/linear_attention.cu``,
    ``csrc/flash_attention.cu``, ``csrc/tap_conv.cu`` and
    ``csrc/gemm_probes.cu``), started together; each one's seconds and the
-   ``-Xptxas -v`` register / shared-memory / spill summary of every template;
+   ``-Xptxas -v`` register / shared-memory / spill summary of every template
+   (and any ptxas note on the wgmma products of P2's window path);
 2. kernel check, each kernel against its plain PyTorch version on the card,
    each case held to a tolerance scaled to its own values:
    - K1 (folded context) and K2 (folded projection) at batch 8 x {262144,
@@ -73,10 +74,14 @@ Phases, each printed on one flushed line with the seconds since start:
 4c. the GEMM probes: P1, both layouts, at its four shapes (M = 524,288)
    against its plain version, then at M = 524,288 + 37 with K in {1296, 144}
    x N in {8, 48, 128} (the streaming kernel) and K = 100 (``gemm_p1``), each
-   twice (identical outputs); P2 at its ten cases at R = 40 against its plain
-   version; their times (P1 beside ``torch.matmul`` in the same layout, P2 at
-   (2048, 1296, 48, 16) with R = 256); then the tools ``bench_gemm`` and
-   ``bench_mma_shapes`` in full;
+   twice (identical outputs); P2 at its ten cases at R = 40 and at the window
+   path's edges (``P2_EDGE_CASES``: m_block 16, 200 and 2048 + 37; K 48, 100,
+   1296 and 1600; N 8 to 1296; R 1 to 256) against its plain version, each
+   twice (identical outputs); their times (P1 beside ``torch.matmul`` in the
+   same layout, P2 at (2048, 1296, 48, 16) with R = 256); then the tools
+   ``bench_gemm`` and ``bench_mma_shapes`` in full, every slope rate of P2 at
+   most the card's 989 TF/s (a kernel that skipped products would give the
+   same output, since the max is idempotent, and only its time can show it);
 5. sampling, the first slice's main path: the ``unconditional_64`` UNet at
    full width, seeded random weights, bf16 compute, through
    ``sample_unconditional`` at 64³ x batch 2, RK4 with 3 frames and 1 substep
@@ -211,6 +216,19 @@ PROBE_CHECK_SHAPES = tuple((k, n) for k in (1296, 144) for n in (8, 48, 128)) + 
 # P2's checks against its plain version run this many products per grid step
 # (every window of the 32, 8 of them twice); its times run the tool's R = 256
 PROBE_CHECK_REPS = 40
+# P2's window path at its edges, (m_block, K, N, grid, R): m_block under one
+# 64-row tile, ragged against it and 2048 + 37; K under one 64-k slice, 1296
+# (a last slice of 16) and 1600 (the largest, B in 48-column tiles); N under
+# and at the 48-column tile, 64, 128, 130 (a ragged column tile) and 1296; R
+# of one product, a pass of fewer than 8 windows, a round short of 32, one
+# round, one product past it, 40 and 256. K = 100 (not a multiple of 8) takes
+# the block-tile kernel.
+P2_EDGE_CASES = (
+    (16, 48, 48, 2, 1), (200, 1296, 40, 3, 7), (2048 + 37, 1296, 48, 2, 31),
+    (200, 100, 48, 2, 32), (16, 1600, 64, 2, 33), (200, 1600, 130, 2, 40),
+    (2048 + 37, 144, 8, 2, 256), (512, 48, 1296, 2, 40), (200, 432, 128, 3, 256),
+    (2048 + 37, 1296, 64, 2, 40),
+)
 # kernel vs plain version, scaled to each case's values (they shrink as
 # 1/sqrt(N) with the tokens): the same bf16 roundings, but K1 rounds exp(k - m)
 # with each chunk's max where the plain version uses the global max, sums run
@@ -638,6 +656,13 @@ def v1_project_work(batch: int, n: int):
 def probe_work(m: int, k: int, n: int):
     """P1's bytes (A, B and the output once each, bf16) and products."""
     return 2 * (m * k + k * n + m * n), 2.0 * m * k * n
+
+
+def mma_probe_work(m_block: int, k: int, n: int, grid: int, reps: int):
+    """P2's bytes (A [grid, m_block + 256, K], B and the output once each, bf16)
+    and products (R window products of [m_block, K] @ [K, N] per grid step)."""
+    return (2 * (grid * (m_block + gp.WINDOW_PAD) * k + k * n + m_block * n),
+            2.0 * m_block * grid * k * n * reps)
 
 
 def conv_work(voxels: int, cin: int, cout: int):
@@ -1070,20 +1095,24 @@ def phase_gemm_probes(worst: dict):
             check(torch.equal(got, again), f"{name} {label}: differs from run to run")
         del a, b, bt, outs, agains, wants
 
-    for m_block, k, n, grid in bms.CASES:
-        label = f"({m_block}, {k}, {n}, {grid}) R = {PROBE_CHECK_REPS}"
+    # P2 at the tool's ten cases, then at the window path's edges, each twice
+    p2_cases = [(*case, PROBE_CHECK_REPS) for case in bms.CASES] + list(P2_EDGE_CASES)
+    for m_block, k, n, grid, reps in p2_cases:
+        label = f"({m_block}, {k}, {n}, {grid}) R = {reps}"
         a, b = bms.operands(m_block, k, n, grid, "cuda")
-        out = gp.mma_probe(a, b, PROBE_CHECK_REPS)
-        want = gp.mma_probe_plain(a, b, PROBE_CHECK_REPS)
+        out, again = gp.mma_probe(a, b, reps), gp.mma_probe(a, b, reps)
+        want = gp.mma_probe_plain(a, b, reps)
         torch.cuda.synchronize()
         check(out.shape == (m_block, n), f"mma_probe {label}: shape {tuple(out.shape)}")
         worst["mma_probe"] = max(worst["mma_probe"], compare("mma_probe", label, out, want))
-        if (m_block, k, n, grid) == (2048, 1296, 48, 16):  # all 27 taps folded: times at R
+        check(torch.equal(out, again), f"mma_probe {label}: differs from run to run")
+        if (m_block, k, n, grid, reps) == (2048, 1296, 48, 16, PROBE_CHECK_REPS):
+            # all 27 taps folded: times at the tool's R
             rows["mma_probe"] = timed_row(
                 "mma_probe", f"({m_block}, {k}, {n}, {grid}) R = {bms.R}",
                 lambda: gp.mma_probe(a, b, bms.R), lambda: gp.mma_probe_plain(a, b, bms.R),
-                2 * (a.numel() + b.numel() + m_block * n), 2.0 * m_block * grid * k * n * bms.R)
-        del a, b, out, want
+                *mma_probe_work(m_block, k, n, grid, bms.R))
+        del a, b, out, again, want
     torch.cuda.empty_cache()
 
     # the tools, in full
@@ -1097,6 +1126,10 @@ def phase_gemm_probes(worst: dict):
     for case in bms.CASES:
         tflops, ms = bms.probe(*case, device="cuda")
         say("gemm probes", f"bench_mma_shapes {case}: {tflops:.1f} TF/s, {ms:.3f} ms at R = {bms.R}")
+        # the max is idempotent: a kernel that skipped products would give the same
+        # output, so the rate of the products is the check
+        check(tflops <= PEAK_BF16_FLOP_PER_S / 1e12,
+              f"mma_probe {case}: slope rate {tflops:.1f} TF/s above the card's peak")
     launches["bench_mma_shapes"] = read_counts()
     say("gemm probes", f"launches {launches}")
     torch.cuda.empty_cache()
@@ -1439,7 +1472,7 @@ def main() -> int:
     for name, build in builds.items():
         say("build", f"nvcc {build.seconds:.1f} s -> {build.path.name}")
         for line in build.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(word in line for word in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"    {line.strip()}", flush=True)
 
     worst = phase_kernel_check()

@@ -24,17 +24,42 @@
 // so that no product can be folded into another. Every one of the R products
 // is computed: a kernel that noticed that only 32 windows differ would void
 // the probe. Its purpose is the tensor-core rate at each (K, N) with the
-// operands kept on chip as far as a block can hold them. On the TPU the
-// whole [m_block + 256, K] block of A sits in VMEM; here the block's [K, 64]
-// columns of B stay in shared memory for all R products (173 KB at K =
-// 1296, which caps K at 1600), but A does not fit: a 128-row window and its
-// 248 rows of slide are 975 KB at K = 1296, against 227 KB of shared memory.
-// So each product streams its A window through shared memory from L2 (the
-// grid step's A is 6 MB at m_block 2048, K 1296; L2 holds 50 MB). The
-// sequential grid of the TPU kernel, which max-accumulates into one output
-// block, becomes a partial pass (one slot per grid step) and a combine pass.
-// At (2048, 1296, 48, 16) with R = 256 the products are 1.04e12 operations,
-// 1.06 ms at 989 TFLOP/s.
+// operands kept on chip as far as a block can hold them. On the TPU the whole
+// [m_block + 256, K] block of A sits in VMEM and each window is a free offset
+// slice of it.
+// What bounds it on the H100: operations. At (2048, 1296, 48, 16) with R = 256
+// the products are 1.04e12 operations, 1.0553 ms at 989 TFLOP/s, against
+// 0.1 GB of A and B read once (0.03 ms at 3.35 TB/s).
+// Where L2 would bind: a window of 128 rows does not fit in shared memory with
+// its 248 rows of slide (975 KB at K = 1296), so windows come from L2. Read
+// anew for each product, A is 21.7 GB per call at that case: 20 TB/s at the
+// bound, several times what L2 delivers. At N = 48 each byte of a window
+// carries only 48 operations.
+// The window path (probe_windows, below) does three things about it:
+//   * Slabs. The W = 8 consecutive windows of a pass over one 64-row output
+//     tile all lie in one slab of 64 + 8 (W - 1) = 120 rows; each 64-k slice
+//     of the slab comes into shared memory once and feeds the W products, each
+//     into its own accumulator, so each L2 byte carries W times more
+//     operations (5.3 GB of L2 reads at that case). Every product is still
+//     computed: a pass shares loads, never products.
+//   * The slabs come by the TMA into a ring of mbarrier-counted stages from
+//     one producer warp, and persistent blocks walk the (column tile, grid
+//     step, row tile) items, so loads run ahead of the products and a tile's
+//     epilogue overlaps the next tile's first loads. B [K, N tile] stays in
+//     shared memory, staged once per block (again only when the column tile
+//     changes), transposed to K-major 64-k slices with the 128-byte swizzle.
+//   * The products run on wgmma (m64n48k16 or m64n64k16, both operands from
+//     shared memory): window w of the slab starts w 8-row atoms (w x 1024
+//     bytes) after the slab, so its descriptor is the slab's plus w x 1024.
+//     Two consumer warpgroups split the W windows (window w to warpgroup
+//     w % 2) and keep one group of products in flight while the next slice
+//     is issued.
+// The max over the grid steps and the warpgroups is an integer atomicMax on
+// the bits of non-negative floats into an f32 [m_block, N] buffer (exact in
+// any order, so every launch gives the same output), then one pass rounds it
+// to bf16. Shapes the window path does not take (K not a multiple of 8, which
+// the TMA's row stride needs) run probe_partial, one block per (grid step,
+// 128 rows, 64 columns) on csrc/tile_mma.cuh, and the combine pass.
 
 #include <cuda.h>
 #include <stdint.h>
@@ -431,6 +456,303 @@ int launch_stream_any(const void* a, const void* b, void* out, long long b_ns, l
   }
 }
 
+// ---------------------------------------------------------------------------
+// P2 on the window path (window_path below; the design is in the note at the
+// head of this file). A block is GROUPS consumer warpgroups and one producer
+// warp.
+// An item is one 64-row output tile of one grid step and one column tile; a
+// block takes items blockIdx.x, + gridDim.x, ... For each item it runs the
+// passes of window::pass_windows, each over the K slices of its slab.
+// ---------------------------------------------------------------------------
+namespace window {
+constexpr int TM = 64, TK = 64;  // output rows of an item; k of a ring stage
+constexpr int W = 8, GROUPS = 2, MAX_STAGES = 4;  // windows a pass; consumer warpgroups
+constexpr int PER_GROUP = W / GROUPS;   // accumulators a warpgroup
+constexpr int SLAB = TM + 8 * (W - 1);  // rows under W windows that slide by 8
+constexpr int SLAB_BYTES = SLAB * TK * 2;
+constexpr int ROW_BYTES = TK * 2;       // a staged row: 64 bf16, 128 bytes
+constexpr int CONSUMERS = 128 * GROUPS, NTHREADS = CONSUMERS + 32;
+constexpr int ALIGN = 1024;             // the swizzle atoms' alignment
+constexpr int SMEM_LIMIT = 232448 - 1024;
+static_assert(32 % W == 0 && W % GROUPS == 0, "a pass's windows stay in one round of 32");
+
+// The passes of one item for R = reps products: a round of 32 products
+// (windows 0..31) is split into passes of W consecutive windows; the last
+// round takes the R mod 32 products left, its last pass fewer than W. So
+// every product index 0..R-1 is taken once. (ops/gemm_probes.py
+// pass_schedule is the same schedule in Python.)
+__host__ __device__ inline int passes(int reps) {
+  return reps / 32 * (32 / W) + (reps % 32 + W - 1) / W;
+}
+
+// pass p takes products 32 r + w0 .. 32 r + w0 + nw - 1: windows w0..w0 + nw - 1
+__device__ __forceinline__ void pass_windows(int p, int reps, int& w0, int& nw) {
+  const int r = p / (32 / W);
+  w0 = (p % (32 / W)) * W;
+  nw = min(W, reps - 32 * r - w0);
+}
+
+struct Plan {
+  int nt;      // the N tile: 48, or 64 where N > 48 and B's [K, 64] fits beside 2 stages
+  int stages;  // ring depth: MAX_STAGES, or what fits beside B
+  int smem;
+};
+
+inline Plan plan(int K, int N) {
+  const int slices = (K + TK - 1) / TK;
+  Plan p;
+  p.nt = N > 48 && ALIGN + slices * 64 * ROW_BYTES + 2 * SLAB_BYTES <= SMEM_LIMIT ? 64 : 48;
+  const int b_bytes = slices * p.nt * ROW_BYTES;
+  p.stages = std::min(MAX_STAGES, (SMEM_LIMIT - ALIGN - b_bytes) / SLAB_BYTES);
+  p.smem = ALIGN + b_bytes + p.stages * SLAB_BYTES;
+  return p;
+}
+
+// B's columns n0..n0 + NT - 1, transposed: slice sl holds rows n of 64 k
+// (sl 64..), swizzled as the TMA would (16-byte unit u of row n at u ^ (n % 8));
+// zeros past K and past N. Each thread writes 16-byte units, lanes along n.
+template <int NT>
+__device__ void stage_b(unsigned char* b_s, const bf16* __restrict__ b, int K, int N, int n0,
+                        int slices, int t) {
+  const unsigned short* bits = reinterpret_cast<const unsigned short*>(b);
+  for (int i = t; i < slices * 8 * NT; i += CONSUMERS) {
+    const int n = i % NT, u = (i / NT) % 8, sl = i / (8 * NT);
+    const int k0 = sl * TK + 8 * u, col = n0 + n;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + 2 * e;
+      const uint32_t lo = col < N && k < K ? bits[static_cast<long long>(k) * N + col] : 0;
+      const uint32_t hi = col < N && k + 1 < K ? bits[static_cast<long long>(k + 1) * N + col] : 0;
+      v[e] = lo | hi << 16;
+    }
+    *reinterpret_cast<uint4*>(b_s + sl * NT * ROW_BYTES + n * ROW_BYTES + ((u ^ (n & 7)) << 4)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// One slice of a pass: KS k16 steps of this warpgroup's NA windows (window
+// group + GROUPS a of the slab for accumulator a), as one committed group.
+// The first slice of a pass starts each sum afresh (accumulate = 0).
+template <int NT, int NA, int KS>
+__device__ __forceinline__ void issue(float (&acc)[PER_GROUP][NT / 2], uint32_t slab,
+                                      uint32_t b_slice, int group, int accumulate) {
+  mma_async::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint64_t db = mma_async::sw128_desc(b_slice + 32 * ks);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      const uint32_t window = slab + (group + GROUPS * a) * 8 * ROW_BYTES;
+      mma_async::wgmma_bf16<NT>(acc[a], mma_async::sw128_desc(window + 32 * ks), db,
+                                ks > 0 || accumulate);
+    }
+  }
+  mma_async::wgmma_commit();
+}
+
+// the k16 steps of a slice (4, or fewer in a last slice past K) as a template
+// argument, so that each batch of wgmmas is straight-line code
+template <int NT, int NA>
+__device__ __forceinline__ void issue_slice(float (&acc)[PER_GROUP][NT / 2], uint32_t slab,
+                                            uint32_t b_slice, int group, int accumulate,
+                                            int ksteps) {
+  switch (ksteps) {
+    case 4: issue<NT, NA, 4>(acc, slab, b_slice, group, accumulate); break;
+    case 3: issue<NT, NA, 3>(acc, slab, b_slice, group, accumulate); break;
+    case 2: issue<NT, NA, 2>(acc, slab, b_slice, group, accumulate); break;
+    default: issue<NT, NA, 1>(acc, slab, b_slice, group, accumulate); break;
+  }
+}
+
+struct Ring {
+  unsigned char* stages;
+  uint64_t* full;
+  uint64_t* empty;
+  int depth;
+};
+
+// One pass of a consumer warpgroup with NA of its windows in the pass: over
+// each slice, wait for the slab's slice, issue its products, and release the
+// stage of the slice before once its products are done (one group stays in
+// flight); then take the max of the NA sums into best. s counts the ring's
+// steps.
+template <int NT, int NA>
+__device__ __forceinline__ void run_pass(float (&acc)[PER_GROUP][NT / 2], float (&best)[NT / 2],
+                                         const Ring& ring, const unsigned char* b_s, int slices,
+                                         int K, int group, int lane, int& s) {
+  int held = -1;  // the stage whose products may still be running
+  for (int sl = 0; sl < slices; ++sl, ++s) {
+    const int j = s % ring.depth;
+    mma_async::mbar_wait(&ring.full[j], (s / ring.depth) & 1);
+    if constexpr (NA > 0) {
+      issue_slice<NT, NA>(acc, mma_async::smem_addr(ring.stages + j * SLAB_BYTES),
+                          mma_async::smem_addr(b_s + sl * NT * ROW_BYTES), group, sl > 0,
+                          min(4, (K - sl * TK + 15) / 16));
+      mma_async::wgmma_wait<1>();
+      if (held >= 0 && lane == 0) mma_async::mbar_arrive(&ring.empty[held]);
+      held = j;
+    } else {
+      __syncwarp();
+      if (lane == 0) mma_async::mbar_arrive(&ring.empty[j]);
+    }
+  }
+  if constexpr (NA > 0) {
+    mma_async::wgmma_wait<0>();
+    if (lane == 0) mma_async::mbar_arrive(&ring.empty[held]);
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int e = 0; e < NT / 2; ++e) {
+        mma_async::fence_operand(acc[a][e]);
+        best[e] = fmaxf(best[e], acc[a][e]);
+      }
+  }
+}
+
+// run_pass with NA = mine, for mine in 0..PER_GROUP
+template <int NT, int NA = PER_GROUP>
+__device__ __forceinline__ void run_pass_for(int mine, float (&acc)[PER_GROUP][NT / 2],
+                                             float (&best)[NT / 2], const Ring& ring,
+                                             const unsigned char* b_s, int slices, int K,
+                                             int group, int lane, int& s) {
+  if constexpr (NA > 0) {
+    if (mine < NA) {
+      run_pass_for<NT, NA - 1>(mine, acc, best, ring, b_s, slices, K, group, lane, s);
+      return;
+    }
+  }
+  run_pass<NT, NA>(acc, best, ring, b_s, slices, K, group, lane, s);
+}
+}  // namespace window
+
+// P2's window path: the max over R products of every item, floored at 0, into
+// best [m_block, N] f32 (zeros before the launch) by atomicMax on the bits.
+template <int NT>
+__global__ void __launch_bounds__(window::NTHREADS, 1)
+probe_windows(const __grid_constant__ CUtensorMap a_map, const bf16* __restrict__ b,
+              float* __restrict__ best_out, int grid, int m_block, int K, int N, int reps,
+              int depth) {
+  using namespace window;
+  using namespace mma_async;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
+  const void* a_tmap = &a_map;  // in the parameter space, where the TMA reads it
+  const uint32_t base = smem_addr(smem_raw);
+  unsigned char* b_s = smem_raw + (ALIGN - base % ALIGN) % ALIGN;  // B's slices
+  const int slices = (K + TK - 1) / TK;
+  const Ring ring{b_s + slices * NT * ROW_BYTES, full, empty, depth};
+  const int row_tiles = (m_block + TM - 1) / TM, col_tiles = (N + NT - 1) / NT;
+  const int items = col_tiles * grid * row_tiles, npass = passes(reps);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+
+  if (t == 0) {
+    for (int j = 0; j < depth; ++j) {
+      mbar_init(&full[j], 1);                 // the producer's arrival with the bytes
+      mbar_init(&empty[j], CONSUMERS / 32);   // each consumer warp's
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {  // the producer
+    if (lane == 0) {
+      int s = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int rt = item % row_tiles, step = item / row_tiles % grid;
+        for (int p = 0; p < npass; ++p) {
+          int w0, nw;
+          pass_windows(p, reps, w0, nw);
+          for (int sl = 0; sl < slices; ++sl, ++s) {
+            const int j = s % depth, n = s / depth;
+            if (n > 0) mbar_wait(&empty[j], (n - 1) & 1);  // the consumers are done with stage j
+            mbar_expect_tx(&full[j], SLAB_BYTES);
+            tma_load_3d(ring.stages + j * SLAB_BYTES, a_tmap, &full[j], sl * TK,
+                        rt * TM + 8 * w0, step);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  const int group = warp / 4, wq = warp % 4;
+  float acc[PER_GROUP][NT / 2];
+  float best[NT / 2];
+#pragma unroll
+  for (int a = 0; a < PER_GROUP; ++a)
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e) acc[a][e] = 0.f;  // defined before the first wgmma reads them
+  int staged = -1;  // the column tile whose B is in shared memory
+  int s = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int rt = item % row_tiles, ct = item / (row_tiles * grid);
+    if (ct != staged) {
+      bar_sync(1, CONSUMERS);  // no product still reads the old columns
+      stage_b<NT>(b_s, b, K, N, ct * NT, slices, t);
+      fence_proxy_async();     // the stores, visible to wgmma (the async proxy)
+      bar_sync(1, CONSUMERS);
+      staged = ct;
+    }
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e) best[e] = 0.f;  // the TPU kernel's zero-initialised max
+    for (int p = 0; p < npass; ++p) {
+      int w0, nw;
+      pass_windows(p, reps, w0, nw);
+      const int mine = nw > group ? (nw - group + GROUPS - 1) / GROUPS : 0;
+      run_pass_for<NT>(mine, acc, best, ring, b_s, slices, K, group, lane, s);
+    }
+    // rows 16 wq + g (+ 8), columns 8 i + 2 q (+ 1) of the item's tile
+    const int row0 = rt * TM + 16 * wq + (lane >> 2), col0 = ct * NT + 2 * (lane & 3);
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e) {
+      const int row = row0 + 8 * ((e >> 1) & 1), col = col0 + 8 * (e >> 2) + (e & 1);
+      if (best[e] > 0.f && row < m_block && col < N)
+        atomicMax(reinterpret_cast<int*>(best_out) + static_cast<long long>(row) * N + col,
+                  __float_as_int(best[e]));
+    }
+  }
+}
+
+// The window path's shapes: K a multiple of 8 (the TMA's row stride is 16-byte
+// aligned). K <= 1600 and 16-byte aligned pointers hold for every call.
+bool window_path(int K) { return K % 8 == 0; }
+
+template <int NT>
+int launch_windows(const void* a, const void* b, float* best, int grid, int m_block, int K,
+                   int N, int reps, const window::Plan& p, cudaStream_t s) {
+  using namespace window;
+  static bool sized = false;  // above 48 KB only once the kernel is allowed to
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        probe_windows<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  // A as [grid][m_block + 256][K], boxes of 64 k x SLAB rows x 1 step, zeros past
+  // K and past a step's rows
+  CUtensorMap a_map;
+  const long long rows = m_block + P2_PAD;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(grid)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(K) * 2,
+                                 static_cast<cuuint64_t>(rows * K * 2)};
+  const cuuint32_t box[3] = {TK, SLAB, 1};
+  const int mapped = mma_async::bf16_tensor_map(&a_map, a, 3, dims, strides, box);
+  if (mapped) return mapped;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(best, 0, static_cast<size_t>(m_block) * N * sizeof(float), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = (N + NT - 1) / NT * grid * ((m_block + TM - 1) / TM);
+  probe_windows<NT><<<std::min(items, sms), NTHREADS, p.smem, s>>>(
+      a_map, static_cast<const bf16*>(b), best, grid, m_block, K, N, reps, p.stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -455,12 +777,28 @@ int gemm_probe_forward(const void* a, const void* b, long long b_ks, long long b
 
 // P2: out [m_block, N] bf16 from A [grid, m_block + 256, K] and B [K, N],
 // bf16, contiguous and 16-byte aligned; part [grid, m_block, N] f32 is
-// scratch. K <= 1600. Returns cudaGetLastError() after the two launches.
+// scratch. K <= 1600. The kernel follows from the shapes: K a multiple of 8
+// (window_path) takes probe_windows, whose max lands in part's first
+// [m_block, N]; other K take probe_partial, one slot of part per grid step.
+// Then probe_combine rounds the max over the slots to bf16. Returns
+// cudaGetLastError() after the launches.
 int mma_probe_forward(const void* a, const void* b, void* part, void* out, int grid, int m_block,
                       int K, int N, int reps, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid < 1 || m_block < 1 || K < 1 || K > P2_MAX_K || N < 1 || reps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long entries = static_cast<long long>(m_block) * N;
+  const unsigned combine_blocks = static_cast<unsigned>((entries + THREADS - 1) / THREADS);
+  if (window_path(K)) {
+    const window::Plan p = window::plan(K, N);
+    float* best = static_cast<float*>(part);
+    const int launched =
+        p.nt == 64 ? launch_windows<64>(a, b, best, grid, m_block, K, N, reps, p, s)
+                   : launch_windows<48>(a, b, best, grid, m_block, K, N, reps, p, s);
+    if (launched) return launched;
+    probe_combine<<<combine_blocks, THREADS, 0, s>>>(best, static_cast<bf16*>(out), 1, entries);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int ldb = (K + S::BK - 1) / S::BK * S::BK + 8;
   const int smem = (BM * S::LD + BN * ldb) * static_cast<int>(sizeof(bf16));
   static int allowed = 0;  // above 48 KB only once the kernel is allowed to
@@ -476,9 +814,8 @@ int mma_probe_forward(const void* a, const void* b, void* part, void* out, int g
                                                static_cast<float*>(part), m_block, K, N, reps, ldb);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long entries = static_cast<long long>(m_block) * N;
-  probe_combine<<<static_cast<unsigned>((entries + THREADS - 1) / THREADS), THREADS, 0, s>>>(
-      static_cast<const float*>(part), static_cast<bf16*>(out), grid, entries);
+  probe_combine<<<combine_blocks, THREADS, 0, s>>>(static_cast<const float*>(part),
+                                                   static_cast<bf16*>(out), grid, entries);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,13 @@
 // Building blocks of the redesigned kernels (K3's bf16 path in
 // csrc/flash_attention.cu, the bf16 box paths of K5a and K5b in
-// csrc/tap_conv.cu, P1's streaming path in csrc/gemm_probes.cu, K1 and K2 on
-// 4 x 32 bf16 heads in csrc/linear_attention.cu): 16-byte cp.async copies
-// into shared memory with zero-fill, 2-D and 3-D tiles copied by the Tensor
-// Memory Accelerator (TMA) and counted on an mbarrier, the host's encoder of
-// their tensor maps, ldmatrix fragment loads (plain and transposed) and
-// mma.sync.m16n8k16 on bf16 with f32 accumulation.
+// csrc/tap_conv.cu, P1's streaming path and P2's window path in
+// csrc/gemm_probes.cu, K1, K2, K4a and K4b on 4 x 32 bf16 heads in
+// csrc/linear_attention.cu): 16-byte cp.async copies into shared memory with
+// zero-fill, 2-D and 3-D tiles copied by the Tensor Memory Accelerator (TMA)
+// and counted on an mbarrier, the host's encoder of their tensor maps,
+// ldmatrix fragment loads (plain and transposed), mma.sync.m16n8k16 on bf16
+// with f32 accumulation, and the warpgroup products (wgmma) with their
+// shared-memory matrix descriptors (P2 only, at the end of this file).
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, q = lane % 4), each
 // 32-bit register two bf16 values, the lower index in the lower half:
@@ -21,7 +23,7 @@
 // whose rows run along m or n feeds A or B as it is.
 //
 // The tile design in csrc/tile_mma.cuh (the f32 and ragged shapes of K5a and
-// K5b, P1's other shapes, P2) does not use this header.
+// K5b, P1's and P2's other shapes) does not use this header.
 
 #pragma once
 
@@ -177,6 +179,100 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---------------------------------------------------------------------------
+// Warpgroup products (wgmma, sm_90a only). Four consecutive warps (a
+// warpgroup, warps 4i..4i+3) issue together one asynchronous product
+// D [64, N] += A [64, 16] B [16, N], A and B read from shared memory through
+// matrix descriptors, D kept in registers, N / 2 f32 values a thread: warp w of
+// the group holds rows 16 w.., and value 4 i + 2 h + c of lane l (g = l / 4,
+// q = l % 4) is D[16 w + g + 8 h, 8 i + 2 q + c]. The products run in the
+// background until wgmma_wait: between wgmma_fence and that wait no other
+// instruction may touch D's registers.
+//
+// Operands here are K-major (k contiguous) tiles with the 128-byte swizzle, as
+// the TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128
+// bytes), the 16-byte unit u of row r at u ^ (r % 8), in atoms of 8 rows
+// (1024 bytes) that start on a 1024-byte boundary. Row r of the tile is at
+// 128 r; the k16 step ks is 32 ks bytes along the row.
+// ---------------------------------------------------------------------------
+
+// The descriptor of a K-major, 128-byte-swizzled operand whose rows 0..7 form
+// one atom at shared address `addr` (plus 32 bytes per k16 step, which the
+// hardware swizzles with the address bits): start address / 16 (bits 0-13),
+// leading byte offset 1 (bits 16-29, unused by this layout), stride byte offset
+// 1024 / 16 from one 8-row atom to the next (bits 32-45), base offset 0
+// (bits 49-51: the atoms are 1024-byte aligned), layout 1 = 128-byte swizzle
+// (bits 62-63).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// Order this warpgroup's earlier register and shared-memory accesses before the
+// wgmmas that follow (needed before the first wgmma of each batch).
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Close the wgmmas issued since the last commit into one group.
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still running: their shared-memory
+// reads are done and their registers hold the sums.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of v across this point (used
+// on the accumulators after wgmma_wait, before they are read).
+__device__ __forceinline__ void fence_operand(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
+}
+
+// D = A B + (accumulate ? D : 0) for bf16 A [64, 16], B [16, N] (both K-major,
+// descriptors a and b) and f32 D [64, N], at the N-tile widths of P2's window
+// path: 48 (N = 48) and 64.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                           int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<48>(float (&d)[24], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %26, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // The TMA's encoder, cuTensorMapEncodeTiled, looked up through the runtime (no

@@ -16,7 +16,10 @@ Port of the two probe kernels of the JAX package's tools:
 They take bf16 only, as the TPU kernels. P1's C entry point picks the
 kernel: K and N multiples of 8 with N ≤ 128 (every shape of the tools) take the
 streaming kernel, which reads A through the Tensor Memory Accelerator; every
-other shape takes the block-tile one. Each wrapper takes its plain PyTorch
+other shape takes the block-tile one. P2's picks it too: K a multiple of 8
+(every shape of the tools) takes the window path, which loads each slab of
+:data:`PASS_WINDOWS` windows once for their products (:func:`pass_schedule`)
+and runs them on ``wgmma``; other K take the block-tile kernel. Each wrapper takes its plain PyTorch
 version (the same products in f32 on the bf16 inputs, rounded to bf16) for
 tensors on the CPU, and only then. For CUDA tensors it launches the
 hand-written kernel in ``csrc/gemm_probes.cu`` (built by :mod:`.cuda_build`),
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -40,6 +43,7 @@ SOURCE = "gemm_probes"
 WINDOW_PAD = 32 * 8   # rows of slide below each grid step's m_block rows of A
 WINDOWS = 32          # distinct row windows: the i-th product uses window i mod 32
 MAX_PROBE_K = 1600    # P2 keeps a [K, 64] tile of B in shared memory
+PASS_WINDOWS = 8      # windows of one pass of P2's window path (csrc: window::W)
 
 launch_counts: Dict[str, int] = {"gemm_probe": 0, "gemm_probe_t": 0, "mma_probe": 0}
 
@@ -72,6 +76,20 @@ def mma_probe_plain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor
         product = torch.matmul(a[:, off:off + m_block].float(), bf)  # [grid, m_block, N]
         best = torch.maximum(best, product.amax(dim=0))
     return best.to(torch.bfloat16)
+
+
+def pass_schedule(reps: int, windows: int = PASS_WINDOWS) -> List[Tuple[int, int]]:
+    """The passes of P2's window path over one output tile (``csrc/gemm_probes.cu``,
+    ``window::passes`` and ``window::pass_windows``): ``(first, count)`` for the
+    products ``first .. first + count - 1`` of a grid step, which use the windows
+    ``first mod 32 ..`` of one slab. Each round of 32 products splits into passes
+    of ``windows`` consecutive windows; the last round takes the ``reps mod 32``
+    products left. So every product 0..reps-1 is taken once."""
+    schedule = []
+    for start in range(0, reps, WINDOWS):
+        left = min(WINDOWS, reps - start)
+        schedule += [(start + w0, min(windows, left - w0)) for w0 in range(0, left, windows)]
+    return schedule
 
 
 # ---------------------------------------------------------------------------

@@ -83,3 +83,11 @@ def test_v1_linear_attention_is_bound_by_bytes(work, n, expected):
     assert by == "bytes"
     assert ms == pytest.approx(expected, abs=1e-4)
     assert flops / chip_smoke.PEAK_F32_FLOP_PER_S * 1e3 < ms
+
+
+def test_mma_probe_at_the_headline_case_is_bound_by_operations():
+    """P2 at (2048, 1296, 48, 16) with R = 256: 1.04e12 operations over 989 TF/s,
+    against 0.1 GB of A and B read once."""
+    ms, by = chip_smoke.bound(*chip_smoke.mma_probe_work(2048, 1296, 48, 16, 256))
+    assert by == "operations"
+    assert ms == pytest.approx(1.0553, abs=1e-4)

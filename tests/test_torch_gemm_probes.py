@@ -95,19 +95,56 @@ def _pallas_probe(mxu, a, b, reps):
         )(a, b)
 
 
-@pytest.mark.parametrize("k,n", [(48, 48), (144, 40)])
-def test_p2_matches_the_pallas_probe_kernel(tools, k, n):
-    """m_block 16, grid 2, R = 40: every window of the 32 and 8 of them twice."""
+@pytest.mark.parametrize("m_block,k,n", [(16, 48, 48), (16, 144, 40), (64, 1296, 48)])
+def test_p2_matches_the_pallas_probe_kernel(tools, m_block, k, n):
+    """grid 2, R = 40: every window of the 32 and 8 of them twice; the last case
+    is the window path's shape on the card (K = 1296 in 64-k slices, N = 48)."""
     rng = np.random.default_rng(k)
-    a, a_j = _bf16(rng, 2, 16 + gp.WINDOW_PAD, k)
+    a, a_j = _bf16(rng, 2, m_block + gp.WINDOW_PAD, k)
     b, b_j = _bf16(rng, k, n, scale=0.02)
     want = _pallas_probe(tools[1], a_j, b_j, 40)
     gp.reset_launch_counts()
     out = gp.mma_probe(a, b, 40)
     assert gp.launch_counts == {"gemm_probe": 0, "gemm_probe_t": 0, "mma_probe": 0}
-    assert out.dtype == torch.bfloat16 and out.shape == (16, n)
+    assert out.dtype == torch.bfloat16 and out.shape == (m_block, n)
     assert (out >= 0).all()
     _assert_ulp_close(out, want)
+
+
+@pytest.mark.parametrize("windows", [4, 8, 16])
+def test_p2_pass_schedule_takes_every_product_once(windows):
+    """For every R in 1..300 and each pass width the A/B tool tries, the passes of
+    the window path take each product index 0..R-1 exactly once, no pass holds
+    more than ``windows`` products or crosses a round of 32 (its windows are
+    consecutive in one slab), and the count of passes is the kernel's
+    ``window::passes``."""
+    for reps in range(1, 301):
+        schedule = gp.pass_schedule(reps, windows)
+        taken = [first + j for first, count in schedule for j in range(count)]
+        assert sorted(taken) == list(range(reps)), reps
+        assert all(1 <= count <= windows for _, count in schedule)
+        assert all(first % gp.WINDOWS + count <= gp.WINDOWS for first, count in schedule)
+        assert len(schedule) == reps // 32 * (32 // windows) + -(-(reps % 32) // windows)
+
+
+@pytest.mark.parametrize("reps", [1, 7, 33, 40])
+def test_p2_passes_over_slabs_give_the_plain_version(reps):
+    """The probe computed as the window path does it: each pass loads one slab of
+    rows 8·(first mod 32) .. + m_block + 8·(count - 1) and takes window j of the
+    pass at 8·j rows into the slab, each product into its own sum, then the max.
+    Exactly the plain version's output."""
+    rng = np.random.default_rng(reps)
+    a, _ = _bf16(rng, 2, 24 + gp.WINDOW_PAD, 16)
+    b, _ = _bf16(rng, 16, 8, scale=0.02)
+    m_block = 24
+    best = torch.zeros(m_block, 8)
+    for first, count in gp.pass_schedule(reps):
+        start = 8 * (first % gp.WINDOWS)
+        slab = a[:, start:start + m_block + 8 * (count - 1)].float()
+        for j in range(count):
+            product = slab[:, 8 * j:8 * j + m_block] @ b.float()
+            best = torch.maximum(best, product.amax(dim=0))
+    assert torch.equal(best.bfloat16(), gp.mma_probe_plain(a, b, reps))
 
 
 def test_p2_plain_version_takes_every_product_it_is_asked_for():

@@ -21,6 +21,7 @@ from flowtrain_stochastic_interpolation_torch.ops import tap_conv as tc
 from flowtrain_stochastic_interpolation_torch.tools import ab_flash_attention as ab_flash
 from flowtrain_stochastic_interpolation_torch.tools import ab_gemm_conv
 from flowtrain_stochastic_interpolation_torch.tools import ab_linear_attention as ab_la
+from flowtrain_stochastic_interpolation_torch.tools import bench_mma_shapes as bms
 from flowtrain_stochastic_interpolation_torch.tools import variants
 
 HEADS, WIDTH = 4, 128
@@ -126,10 +127,11 @@ def test_linear_attention_variants_of_the_ab_tool_still_apply_to_the_source():
 
 
 @pytest.mark.parametrize("source,table", [
-    (gp.SOURCE, ab_gemm_conv.P1_VARIANTS), (tc.SOURCE, ab_gemm_conv.K5A_VARIANTS)])
+    (gp.SOURCE, ab_gemm_conv.P1_VARIANTS), (gp.SOURCE, ab_gemm_conv.P2_VARIANTS),
+    (tc.SOURCE, ab_gemm_conv.K5A_VARIANTS)])
 def test_gemm_and_conv_variants_of_the_ab_tool_still_apply_to_the_sources(source, table):
-    """tools/ab_gemm_conv.py builds P1 and K5a variants by substituting lines of
-    their sources: each substitution must still find its line."""
+    """tools/ab_gemm_conv.py builds P1, P2 and K5a variants by substituting lines
+    of their sources: each substitution must still find its line."""
     for subs, _ in table.values():
         assert variants.variant_source(source, subs) != variants.variant_source(source, [])
 
@@ -779,15 +781,40 @@ def test_gemm_probe_matches_plain_version(cuda, m, k, n):
     _assert_ulp_close(out_t, gp.gemm_probe_t_plain(a, bt), torch.bfloat16)
 
 
+# P2 at the window path's edges, (m_block, K, N, grid, R), as chip_smoke.py's
+# P2_EDGE_CASES: m_block under one 64-row tile, ragged against it and 2048 + 37;
+# K 48, 1296 (a last 64-k slice of 16) and 1600; N 8 to 1296, 130 a ragged
+# column tile; R from one product to 256, with passes of fewer than 8 windows
+# and a round short of 32 or one past it. K = 100 takes the block-tile kernel.
+P2_EDGES = [
+    (16, 48, 48, 2, 40), (200, 432, 130, 3, 40), (2048, 1296, 48, 2, 40),
+    (16, 48, 48, 2, 1), (200, 1296, 40, 3, 7), (2048 + 37, 1296, 48, 2, 31),
+    (200, 100, 48, 2, 32), (16, 1600, 64, 2, 33), (200, 1600, 130, 2, 40),
+    (2048 + 37, 144, 8, 2, 256), (512, 48, 1296, 2, 40), (200, 432, 128, 3, 256),
+    (2048 + 37, 1296, 64, 2, 40),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m_block,k,n,grid", [(16, 48, 48, 2), (200, 432, 130, 3),
-                                              (2048, 1296, 48, 2)])
-def test_mma_probe_matches_plain_version(cuda, m_block, k, n, grid):
-    """40 products per grid step: every window of the 32 and 8 of them twice."""
+@pytest.mark.parametrize("m_block,k,n,grid,reps", P2_EDGES)
+def test_mma_probe_matches_plain_version(cuda, m_block, k, n, grid, reps):
+    """R products per grid step against the plain version, and the same output on
+    a second launch (the max over grid steps lands by atomics, in any order)."""
     a, b = _probe_operands(m_block, k, n, cuda, seed=m_block, grid=grid)
     gp.reset_launch_counts()
-    out = gp.mma_probe(a, b, 40)
+    out, again = gp.mma_probe(a, b, reps), gp.mma_probe(a, b, reps)
     torch.cuda.synchronize()
-    assert gp.launch_counts == {"gemm_probe": 0, "gemm_probe_t": 0, "mma_probe": 1}
+    assert gp.launch_counts == {"gemm_probe": 0, "gemm_probe_t": 0, "mma_probe": 2}
     assert out.shape == (m_block, n) and out.dtype == torch.bfloat16
-    _assert_ulp_close(out, gp.mma_probe_plain(a, b, 40), torch.bfloat16)
+    assert torch.equal(out, again)
+    _assert_ulp_close(out, gp.mma_probe_plain(a, b, reps), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_mma_probe_slope_rate_stays_under_the_peak(cuda):
+    """The max is idempotent, so a kernel that skipped or repeated products would
+    give the same output: the rate of the products between R = 256 and 32, at each
+    of the tool's ten cases, must stay at or under the card's 989 TF/s."""
+    for case in bms.CASES:
+        tflops, _ = bms.probe(*case, device=cuda)
+        assert 0 < tflops <= 989.0, (case, tflops)
