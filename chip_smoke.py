@@ -92,6 +92,24 @@ Phases, each printed on one flushed line with the seconds since start:
    kernels) against the same weights in f32 on the CPU (plain path), and the
    fa16 64³ forward at ``dtype="float32"`` on the card, whose K1, K2 and K3
    must take f32 operands, against the same CPU forward;
+5b. the conditional model, the tenth slice's main paths: ``conditional_64``
+   (``UNet3DCond`` v3: dim 48, mults (1,2,2,3,4), 4 heads x 32, 15 data
+   channels, the 5³ ``EmbedATb`` towers and time-FiLM ``MixATb`` fuses at
+   every stage) at full width, seeded random weights, bf16: a 16³ b1 forward
+   on the card (K1 and K2 twice each) against the same weights in f32 on the
+   CPU, given the observations (``build_atb``) of a synthetic volume under the
+   port's combined borehole and surface mask; ``sample_conditional`` at 64³,
+   an ensemble of 8 in 2 batches of 4, RK4 with 3 frames and 1 substep (8
+   evaluations a batch), K1 and K2 6 times per evaluation, finite states, and
+   the ensemble maps (vote probabilities, entropy, air-masked entropy, most
+   probable model, dike probability) of the 8 decoded volumes; the ATb towers
+   alone (``init_conv_ATb`` and every ``EmbedATb``, which see only ATb) at b4
+   beside the b4 forward (CUDA events); a ``torch.profiler`` table of one b4
+   64³ forward with its convolutions and resizes by shape and the towers'
+   share of the kernel time; then ``make_train_step`` on ``conditional_loss``
+   at the recipe's micro-batch 8 x accumulation 4, 2 warm-up and 6 timed
+   micro-steps, as phase 8 runs them: the loss and its two parts finite, K1
+   and K2 6 times per micro-step;
 6. forward at the benchmark's batch: b8 x 64³ UNet forwards, 1 warm-up and 3
    timed, each closed by ``torch.cuda.synchronize()``; then a
    ``torch.profiler`` breakdown of one forward by device time;
@@ -116,7 +134,7 @@ Phases, each printed on one flushed line with the seconds since start:
    training mode, two samplers from the same x0 must agree exactly.
 
 The launch counts are set to 0 just before each main-path run (phases 4a-4c,
-5, 7 and 8) and read just after it. Then one JSON line per kernel (``{"kernels":
+5, 5b, 7 and 8) and read just after it. Then one JSON line per kernel (``{"kernels":
 [...]}``), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
 """
@@ -135,27 +153,30 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from flowtrain_stochastic_interpolation_torch.config import unconditional_64
+from flowtrain_stochastic_interpolation_torch.config import conditional_64, unconditional_64
 from flowtrain_stochastic_interpolation_torch.data.synthetic import synthetic_geology_batch
 from flowtrain_stochastic_interpolation_torch.inference import (
+    build_atb,
     initial_noise,
     make_sampler,
+    sample_conditional,
     sample_unconditional,
 )
 from flowtrain_stochastic_interpolation_torch.models.attention import Attention, LinearAttention
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
-from flowtrain_stochastic_interpolation_torch.ops import cuda_build
+from flowtrain_stochastic_interpolation_torch.ops import cuda_build, ensemble
 from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
 from flowtrain_stochastic_interpolation_torch.ops import gemm_probes as gp
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
 from flowtrain_stochastic_interpolation_torch.ops import tap_conv as tc
 from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
+from flowtrain_stochastic_interpolation_torch.ops.masks import make_combined_mask
 from flowtrain_stochastic_interpolation_torch.tools import ab_linear_attention as ab_la
 from flowtrain_stochastic_interpolation_torch.tools import bench_folded
 from flowtrain_stochastic_interpolation_torch.tools import bench_gemm as bg
 from flowtrain_stochastic_interpolation_torch.tools import bench_mma_shapes as bms
 from flowtrain_stochastic_interpolation_torch.tools import bench_tap_conv as btc
-from flowtrain_stochastic_interpolation_torch.train.loop import init_train_state
+from flowtrain_stochastic_interpolation_torch.train.loop import build_model, init_train_state
 from flowtrain_stochastic_interpolation_torch.train.steps import make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, bf16 tensor-core rate
@@ -284,6 +305,12 @@ CONV_REF_REL_TOL = 1e-2
 # p and v to bf16; about 1% of RMS): outputs and input gradients, relative L2
 V1_FOLDED_REL_TOL, V1_FOLDED_GRAD_REL_TOL = 1e-2, 2e-2
 TRAIN_MICRO_BATCH, TRAIN_ACCUM, TRAIN_WARMUP, TRAIN_STEPS = 4, 2, 2, 8
+# the conditional model: an ensemble of 8 in batches of 4 (the recipe's
+# inference.batch_size), RK4 over 3 frames (8 evaluations a batch); training at
+# the recipe's micro-batch 8 x accumulation 4, 2 warm-up and 6 timed micro-steps
+COND_SIDE, COND_SAMPLES, COND_BATCH, COND_FRAMES = 64, 8, 4, 3
+COND_MICRO_BATCH, COND_ACCUM, COND_STEPS = 8, 4, 6
+DIKE_CATEGORY = 13  # GeoGen's dikes, whose probability the ensemble analysis maps
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
     "folded_project": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
@@ -1140,42 +1167,46 @@ def phase_gemm_probes(worst: dict):
 # Sampling (the first slice's main path)
 # ---------------------------------------------------------------------------
 def seeded_model(cfg, seed: int = 0) -> UNet:
-    model = UNet.from_config(cfg.model, device="cuda").eval()
+    model = build_model(cfg, device="cuda").eval()
     model.reset_parameters(torch.Generator(device="cuda").manual_seed(seed))
     return model
 
 
-def reference_check(label, model, cfg, side: int, expected: dict, f32_card: bool = False) -> None:
+def reference_check(label, model, cfg, side: int, expected: dict, f32_card: bool = False,
+                    phase: str = "sampling") -> None:
     """A forward on the card (bf16, kernels) against the same weights in f32 on
     the CPU; with ``f32_card``, also the model at ``dtype="float32"`` on the card,
     whose kernels must take f32 operands."""
     expected = {name: expected.get(name, 0) for name in KERNELS}
-    cpu = UNet.from_config(dataclasses.replace(cfg.model, dtype="float32"), device="cpu").eval()
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="float32"))
+    cpu = build_model(f32, device="cpu").eval()
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(1, side, side, side, cfg.data.embedding_dim, generator=gen)
+    # a conditional model also takes the observations of a synthetic volume
+    cond = (observations(gen, cfg, side)[None],) if cfg.model.conditional else ()
     t = torch.full((1,), 0.5)  # exact in bf16, which the model casts time to
     reset_counts()
     with torch.inference_mode():
-        ref = cpu(x, t)
-        got = model(x.cuda().bfloat16(), t.cuda()).cpu()
+        ref = cpu(x, *cond, t)
+        got = model(x.cuda().bfloat16(), *(a.cuda() for a in cond), t.cuda()).cpu()
     launches = read_counts()
     rel = rel_l2(got, ref)
-    say("sampling", f"{label} {side}³ b1 forward on the card (bf16, kernels launched {launches}) "
+    say(phase, f"{label} {side}³ b1 forward on the card (bf16, kernels launched {launches}) "
         f"vs f32 on the CPU: relative L2 error {rel:.3e} (tolerance {FORWARD_REL_TOL:g})")
     check(bool(torch.isfinite(got).all()), f"non-finite {label} {side}³ forward")
     check(launches == expected, f"{label} {side}³ forward launches {launches}, expected {expected}")
     check(rel < FORWARD_REL_TOL, f"{label} {side}³ forward relative error {rel:.3e}")
     if not f32_card:
         return
-    card = UNet.from_config(dataclasses.replace(cfg.model, dtype="float32"), device="cuda").eval()
+    card = build_model(f32, device="cuda").eval()
     card.load_state_dict(model.state_dict())
     reset_counts()
     with operand_dtypes() as dtypes, torch.inference_mode():
-        got = card(x.cuda(), t.cuda()).cpu()
+        got = card(x.cuda(), *(a.cuda() for a in cond), t.cuda()).cpu()
     launches = read_counts()
     rel = rel_l2(got, ref)
-    say("sampling", f"{label} {side}³ b1 forward on the card at dtype=float32 (kernels launched "
+    say(phase, f"{label} {side}³ b1 forward on the card at dtype=float32 (kernels launched "
         f"{launches}, operand dtypes {dtypes}) vs f32 on the CPU: relative L2 error {rel:.3e} "
         f"(tolerance {F32_FORWARD_REL_TOL:g})")
     check(bool(torch.isfinite(got).all()), f"non-finite f32 {label} {side}³ forward")
@@ -1236,11 +1267,14 @@ def phase_sampling():
     return model, launches
 
 
-def profile_table(phase: str, fn, label: str, wall_ms: float) -> None:
+def profile_table(phase: str, fn, label: str, wall_ms: float, record_shapes: bool = False):
+    """Print the top kernels of one call of ``fn`` by device time; return the
+    profile and its total kernel time in µs (0 where none was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -1248,13 +1282,14 @@ def profile_table(phase: str, fn, label: str, wall_ms: float) -> None:
     total = sum(e.self_device_time_total for e in kernels)
     if total <= 0:
         say(phase, "profiler: no device time recorded (not measured)")
-        return
+        return prof, 0.0
     say(phase, f"profiler: {label}, {total / 1e3:.2f} ms of kernel time in "
         f"{sum(e.count for e in kernels)} launches (unprofiled wall time {wall_ms:.1f} ms); "
         f"top kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms {100 * e.self_device_time_total / total:5.1f}%"
               f"  x{e.count:<5d} {e.key[:100]}", flush=True)
+    return prof, total
 
 
 def phase_forward(model):
@@ -1276,6 +1311,143 @@ def phase_forward(model):
         f"median {fwd_ms:.1f} ms")
     with torch.inference_mode():
         profile_table("forward", lambda: model(x, t), f"one b{BATCH} forward", fwd_ms)
+
+
+# ---------------------------------------------------------------------------
+# The conditional model (the tenth slice's main paths)
+# ---------------------------------------------------------------------------
+def observations(gen: torch.Generator, cfg, side: int) -> torch.Tensor:
+    """ATb ``[side³, E]`` on the generator's device: ``build_atb`` of a synthetic
+    categorical volume under the port's combined borehole and surface mask."""
+    true = synthetic_geology_batch(gen, 1, (side, side, side))
+    mask = make_combined_mask(gen, true)
+    table = torch.from_numpy(simplex_embedding(cfg.data.num_categories, cfg.data.embedding_dim))
+    return build_atb(true[0], mask[0], table)
+
+
+def tower_share(prof, total_us: float, data_channels: int) -> None:
+    """The convolutions of one profiled forward by weight and input shape, with
+    their rates, and the ATb towers' share of the kernel time: their 5³ convs,
+    the 7³ conv at data width (``init_conv_ATb``) and the resizes of the opened
+    ATb (inputs of ``data_channels`` channels)."""
+    rows, tower = [], 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key not in ("aten::conv3d", "aten::upsample_trilinear3d") or not e.input_shapes:
+            continue
+        x = e.input_shapes[0]
+        if e.key == "aten::conv3d":
+            w = e.input_shapes[1]
+            is_tower = w[2] == 5 or (w[2] == 7 and w[0] == data_channels)
+            # SAME convs: 2 operations per weight per output voxel
+            ops = 2.0 * e.count * float(np.prod(x[:1] + x[2:])) * float(np.prod(w))
+            label = (f"conv {w[2]}³ {w[1]}->{w[0]} at {x[2]}³ b{x[0]}, "
+                     f"{ops / (e.device_time_total * 1e-6) / 1e12:.1f} TF/s")
+        else:
+            is_tower = x[1] == data_channels
+            label = f"resize of {x[1]} channels from {x[2]}³ b{x[0]}"
+        rows.append((e.device_time_total, e.count, label + (" (tower)" if is_tower else "")))
+        tower += e.device_time_total if is_tower else 0.0
+    say("conditional", f"profiler: convolutions and resizes by shape, device time (of "
+        f"{total_us / 1e3:.2f} ms of kernel time):")
+    for us, count, label in sorted(rows, reverse=True)[:16]:
+        print(f"    {us / 1e3:9.3f} ms {100 * us / total_us:5.1f}%  x{count:<3d} {label}", flush=True)
+    say("conditional", f"profiler: the ATb towers (5³ convs, the 7³ conv at data width, "
+        f"their resizes): {tower / 1e3:.3f} ms, {100 * tower / total_us:.1f}% of the forward's "
+        f"kernel time")
+
+
+def phase_conditional() -> dict:
+    """``conditional_64`` at full width, seeded random weights, bf16: the 16³
+    reference forward, ``sample_conditional`` and the ensemble maps, the ATb
+    towers' cost per evaluation, a profile of one b4 forward, and training."""
+    cfg = conditional_64()
+    model = seeded_model(cfg)
+    per_eval = {"folded_context": 6, "folded_project": 6}
+    reference_check("conditional v3", model, cfg, 16,
+                    {"folded_context": 2, "folded_project": 2}, phase="conditional")
+
+    e = cfg.data.embedding_dim
+    table = torch.from_numpy(simplex_embedding(cfg.data.num_categories, e))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    atb = observations(gen, cfg, COND_SIDE)
+    observed = float((atb != 0).any(dim=-1).float().mean())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = sample_conditional(
+        model, table, atb, n_samples=COND_SAMPLES, batch_size=COND_BATCH, seed=0, device="cuda",
+        state_dtype=torch.bfloat16, verbose=False, t0=cfg.inference.t0, tf=cfg.inference.tf,
+        n_frames=COND_FRAMES, substeps=1, method="rk4", keep_trajectory=True)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nfe, seconds = result.nfe, result.seconds_per_batch
+    n_batches = len(seconds)
+    say("conditional", f"sample_conditional {COND_SIDE}³, {n_batches} batches of {COND_BATCH}, rk4 "
+        f"n_frames={COND_FRAMES} substeps=1, ATb observed on {100 * observed:.1f}% of voxels: nfe "
+        f"{nfe} a batch, {', '.join(f'{x:.3f}' for x in seconds)} s per batch (the first with "
+        f"cuDNN's set-up), {seconds[-1] / nfe * 1e3:.1f} ms per evaluation in the last; launches "
+        f"{launches}; max_memory_allocated {peak:.2f} GiB")
+    check(nfe == (COND_FRAMES - 1) * 4, f"conditional: {nfe} velocity evaluations")
+    for name in KERNELS:
+        want = per_eval.get(name, 0) * nfe * n_batches
+        check(launches[name] == want,
+              f"conditional sampling: {name} launched {launches[name]} times, expected {want}")
+    final = result.trajectory[-1]
+    check(result.decoded.shape == (COND_SAMPLES, *[COND_SIDE] * 3),
+          f"conditional: decoded shape {result.decoded.shape}")
+    check(final.shape == (COND_SAMPLES, *[COND_SIDE] * 3, e), f"conditional: final state {final.shape}")
+    check(bool(np.isfinite(final).all()), "conditional: non-finite final state")
+
+    # the ensemble maps of the decoded batch (GeoGen's convention: air = -1)
+    solutions = torch.from_numpy(result.decoded).cuda() - 1
+    probs = ensemble.vote_probabilities(solutions, cfg.data.num_categories)
+    ent = ensemble.entropy(probs)
+    masked = ensemble.air_masked_entropy(probs)
+    likely = ensemble.most_probable_model(probs)
+    dikes = ensemble.category_probability(probs, DIKE_CATEGORY)
+    check(probs.shape == (*[COND_SIDE] * 3, cfg.data.num_categories)
+          and bool(torch.allclose(probs.sum(-1), torch.ones((), device="cuda"), atol=1e-6)),
+          f"conditional: vote probabilities {tuple(probs.shape)} do not sum to 1")
+    check(bool(((ent >= 0) & (ent <= np.log(COND_SAMPLES) + 1e-5) & (masked <= ent)).all()),
+          "conditional: entropy outside [0, log S] or the air-masked one above it")
+    check(bool(((likely >= -1) & (likely <= cfg.data.num_categories - 2)).all())
+          and bool(((dikes >= 0) & (dikes <= 1)).all()), "conditional: ensemble maps out of range")
+    say("conditional", f"ensemble of {COND_SAMPLES}: mean entropy {float(ent.mean()):.4f} "
+        f"(air-masked {float(masked.mean()):.4f}), most probable model in "
+        f"[{int(likely.min())}, {int(likely.max())}], mean dike probability "
+        f"{float(dikes.mean()):.4f}")
+
+    # the towers see only ATb: their cost is the same at every evaluation
+    x = initial_noise(gen, COND_BATCH, (COND_SIDE,) * 3, e, torch.bfloat16, torch.device("cuda"))
+    atb_b = atb[None].expand(COND_BATCH, *atb.shape)
+    t = torch.full((COND_BATCH,), 0.5, device="cuda")
+    embeds = [m for name, m in model.named_children() if name.endswith("_atb_embed")]
+
+    def towers():
+        opened = model.init_conv_ATb(atb_b)
+        return [m(opened) for m in embeds]
+
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: model(x, atb_b, t), reps=3, rounds=3, warmup=1)
+        tower_ms = time_ms(towers, reps=3, rounds=3, warmup=1)
+        say("conditional", f"b{COND_BATCH} {COND_SIDE}³ forward {forward_ms:.2f} ms; the ATb towers alone "
+            f"(init_conv_ATb and {len(embeds)} EmbedATb) {tower_ms:.2f} ms, "
+            f"{100 * tower_ms / forward_ms:.1f}% of a velocity evaluation")
+        prof, total = profile_table("conditional", lambda: model(x, atb_b, t),
+                                    f"one b{COND_BATCH} {COND_SIDE}³ conditional forward", forward_ms,
+                                    record_shapes=True)
+    if total > 0:
+        tower_share(prof, total, e)
+    del model, x, atb_b, result, solutions, probs
+    torch.cuda.empty_cache()
+
+    train_cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=COND_MICRO_BATCH),
+        training=dataclasses.replace(cfg.training, accumulate_grad_batches=COND_ACCUM))
+    trained = train("conditional", train_cfg, per_eval, steps=COND_STEPS)
+    check(set(trained["losses"]) == {"train_loss", "flow_loss", "reconstruct_loss"},
+          f"conditional: loss metrics {sorted(trained['losses'])}")
+    return {"sampling conditional": launches, "train conditional": trained["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1390,25 +1562,33 @@ def sampler_after_training(label: str, model, state, cfg, gen) -> None:
     check(model.training, f"{label}: the sampler did not hand the model back in training mode")
 
 
-def train(label: str, full_attn, per_step: dict, profile: bool = False,
-          check_sampler: bool = False) -> dict:
+def flagship_train_config(full_attn):
+    """``unconditional_64`` with ``full_attn`` at micro-batch 4 x accumulation 2."""
     cfg = unconditional_64()
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, full_attn=full_attn),
         data=dataclasses.replace(cfg.data, batch_size=TRAIN_MICRO_BATCH),
         training=dataclasses.replace(cfg.training, accumulate_grad_batches=TRAIN_ACCUM),
     )
+
+
+def train(label: str, cfg, per_step: dict, steps: int = TRAIN_STEPS, profile: bool = False,
+          check_sampler: bool = False) -> dict:
+    """``TRAIN_WARMUP`` + ``steps`` micro-steps of ``cfg``'s loss at its
+    ``data.batch_size`` x ``training.accumulate_grad_batches``."""
+    micro_batch, accum = cfg.data.batch_size, cfg.training.accumulate_grad_batches
     model, tx, state = init_train_state(cfg)
     step = make_train_step(model, tx, cfg)
     gen = torch.Generator(device="cuda").manual_seed(10)
-    n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    batches = [synthetic_geology_batch(gen, TRAIN_MICRO_BATCH, cfg.data.shape)
+    n_steps = TRAIN_WARMUP + steps
+    batches = [synthetic_geology_batch(gen, micro_batch, cfg.data.shape)
                for _ in range(n_steps + 1)]
     check(all(int(b.min()) == -1 and int(b.max()) <= cfg.data.num_categories - 2
               for b in batches), f"{label}: synthetic batches outside [-1, n - 2]")
     params = list(state.params.values())
     snapshot = [torch.empty_like(p) for p in params]
-    times, changed, losses, norms = [], [], [], []
+    times, changed, norms = [], [], []
+    losses = {}  # the loss and, for the conditional loss, its two parts
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1421,25 +1601,28 @@ def train(label: str, full_attn, per_step: dict, profile: bool = False,
         if i >= TRAIN_WARMUP:
             times.append((time.perf_counter() - start) * 1e3)
         changed.append(any(not torch.equal(a, p) for a, p in zip(snapshot, params)))
-        losses.append(float(metrics["train_loss"]))
+        for name, value in metrics.items():
+            if name != "grad_norm":
+                losses.setdefault(name, []).append(float(value))
         norms.append(float(metrics["grad_norm"]))
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     median = statistics.median(times)
-    say("train", f"{label} 64³ micro-batch {TRAIN_MICRO_BATCH} x accumulation {TRAIN_ACCUM}: "
+    say("train", f"{label} {cfg.data.shape[0]}³ micro-batch {micro_batch} x accumulation {accum}: "
         f"{n_steps} micro-steps ({TRAIN_WARMUP} warm-up): {', '.join(f'{t:.1f}' for t in times)} "
         f"ms, median {median:.1f} ms per micro-step; peak {peak:.2f} GiB allocated")
-    say("train", f"{label}: train_loss {', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
-        f"{', '.join(f'{x:.4f}' for x in norms)}")
+    for name, values in losses.items():
+        say("train", f"{label}: {name} {', '.join(f'{x:.4f}' for x in values)}")
+    say("train", f"{label}: grad_norm {', '.join(f'{x:.4f}' for x in norms)}")
     per = {k: v / n_steps for k, v in launches.items()}
     say("train", f"{label}: launches {launches} in {n_steps} micro-steps, {per} per micro-step; "
         f"params changed at micro-steps {[i for i, c in enumerate(changed) if c]} "
-        f"(accumulation boundaries every {TRAIN_ACCUM})")
-    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
-          f"{label}: non-finite loss or gradient norm")
-    check(changed == [i % TRAIN_ACCUM == TRAIN_ACCUM - 1 for i in range(n_steps)],
+        f"(accumulation boundaries every {accum})")
+    check(all(np.isfinite(v).all() for v in losses.values()) and all(np.isfinite(norms)),
+          f"{label}: non-finite loss, loss part or gradient norm")
+    check(changed == [i % accum == accum - 1 for i in range(n_steps)],
           f"{label}: params changed at {changed}")
-    check(state.step == n_steps and state.opt_state.updates == n_steps // TRAIN_ACCUM,
+    check(state.step == n_steps and state.opt_state.updates == n_steps // accum,
           f"{label}: {state.step} micro-steps, {state.opt_state.updates} updates")
     for name in KERNELS:
         check(per[name] == per_step.get(name, 0),
@@ -1452,7 +1635,7 @@ def train(label: str, full_attn, per_step: dict, profile: bool = False,
         sampler_after_training(label, model, state, cfg, gen)
     del model, tx, state, step, batches, snapshot
     torch.cuda.empty_cache()
-    return dict(ms=median, peak_gib=peak, launches=launches)
+    return dict(ms=median, peak_gib=peak, launches=launches, losses=losses)
 
 
 def main() -> int:
@@ -1491,16 +1674,18 @@ def main() -> int:
         launches.update(phase_launches)
     model, sampling_launches = phase_sampling()
     launches.update(sampling_launches)
+    launches.update(phase_conditional())
     phase_forward(model)
     widths = linear_attention_widths(model)
     del model
     torch.cuda.empty_cache()
     launches.update(phase_v1(widths))
     launches["train flagship"] = train(
-        "flagship", None, {"folded_context": 6, "folded_project": 6},
+        "flagship", flagship_train_config(None), {"folded_context": 6, "folded_project": 6},
         check_sampler=True)["launches"]
     launches["train fa16"] = train(
-        "fa16", FA16, {"flash_attention": 2, "folded_context": 4, "folded_project": 4},
+        "fa16", flagship_train_config(FA16),
+        {"flash_attention": 2, "folded_context": 4, "folded_project": 4},
         profile=True)["launches"]
 
     kernels = []

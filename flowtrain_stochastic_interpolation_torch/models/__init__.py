@@ -1,5 +1,6 @@
-"""The 3-D attention UNet and its building blocks."""
+"""The 3-D attention UNets and their building blocks."""
 
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet, UNet3D
+from flowtrain_stochastic_interpolation_torch.models.unet_cond import UNet3DCond
 
-__all__ = ["UNet", "UNet3D"]
+__all__ = ["UNet", "UNet3D", "UNet3DCond"]

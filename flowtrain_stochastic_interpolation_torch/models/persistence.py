@@ -1,10 +1,13 @@
 """Parameters from the JAX package's tree to the port's ``state_dict``.
 
 :func:`params_from_jax` takes the flax parameter tree of
-``flowtrain_stochastic_interpolation_tpu.models.UNet3D`` as nested dicts of
-numpy arrays (``{"params": ...}`` or the params alone) and returns the
-``state_dict`` of :class:`models.unet.UNet` with the same weights. It is the
-reverse of the JAX package's ``convert_unet3d``, leaf by leaf:
+``flowtrain_stochastic_interpolation_tpu.models.UNet3D`` or ``UNet3DCond`` as
+nested dicts of numpy arrays (``{"params": ...}`` or the params alone) and
+returns the ``state_dict`` of :class:`models.unet.UNet` or
+:class:`models.unet_cond.UNet3DCond` with the same weights (the conditional
+tree's new names, ``init_conv_ATb`` or ``downs_0_atb_mix``, hold the same kinds
+of leaves). It is the reverse of the JAX package's ``convert_unet3d``, leaf by
+leaf:
 
 * conv kernels ``[k, k, k, in, out]`` (DHWIO) -> ``weight [out, in, k, k, k]``;
 * Dense kernels ``[in, out]`` -> ``weight [out, in]``;

@@ -19,7 +19,7 @@ module's ``state_dict`` leaf by leaf (:func:`models.persistence.params_from_jax`
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -95,7 +95,7 @@ class UNet(nn.Module):
         def res(ch_in, ch_out):
             return ResnetBlock(ch_in, ch_out, time_dim, dropout=dropout, **kw)
 
-        self.init_conv = Conv3d(data_channels, dim, 7, **kw)
+        self._input_convs(data_channels, dim, kw)
         self.time_mlp = TimeMLP(time_resolution, time_dim, bandwidth=time_bandwidth, **kw)
 
         skip_dims = []
@@ -130,19 +130,22 @@ class UNet(nn.Module):
         self.n_stages = n_stages
         self.eval()
 
-    @classmethod
-    def from_config(cls, cfg: ModelConfig, *, device=None) -> "UNet":
-        """The UNet of a :class:`config.ModelConfig` (unconditional, learned-Fourier time).
+    def _input_convs(self, data_channels: int, dim: int, kw: dict) -> None:
+        self.init_conv = Conv3d(data_channels, dim, 7, **kw)
 
-        Built on ``cuda`` unless ``device`` names another (:func:`device.resolve_device`).
-        """
-        if cfg.conditional or cfg.self_condition or cfg.time_sin_pos or not cfg.time_learned_emb:
+    @staticmethod
+    def config_kwargs(cfg: ModelConfig, device=None) -> dict:
+        """The constructor's arguments for a :class:`config.ModelConfig`; raises
+        ``NotImplementedError`` for what the port lacks (self-conditioning,
+        sinusoidal or RandomFourier time, no attention)."""
+        if cfg.self_condition or cfg.time_sin_pos or not cfg.time_learned_emb:
             raise NotImplementedError(
-                "the port has the unconditional UNet with LearnedFourier time only"
+                "the port's UNets have LearnedFourier time and no self-conditioning "
+                "(ROADMAP Queue 1, the rest of the UNet)"
             )
         if not cfg.attn_enabled:
-            raise NotImplementedError("the port's UNet always has attention")
-        return cls(
+            raise NotImplementedError("the port's UNets always have attention")
+        return dict(
             dim=cfg.dim, dim_mults=cfg.dim_mults, data_channels=cfg.data_channels,
             time_resolution=cfg.time_resolution, time_bandwidth=cfg.time_bandwidth,
             attn_dim_head=cfg.attn_dim_head, attn_heads=cfg.attn_heads,
@@ -151,6 +154,16 @@ class UNet(nn.Module):
             remat_blocks=cfg.remat_blocks, dtype=getattr(torch, cfg.dtype),
             device=resolve_device(device),
         )
+
+    @classmethod
+    def from_config(cls, cfg: ModelConfig, *, device=None) -> "UNet":
+        """The UNet of an unconditional :class:`config.ModelConfig`.
+
+        Built on ``cuda`` unless ``device`` names another (:func:`device.resolve_device`).
+        """
+        if cfg.conditional:
+            raise ValueError("a conditional config builds a UNet3DCond (models.unet_cond)")
+        return cls(**cls.config_kwargs(cfg, device))
 
     @property
     def downsample_factor(self) -> int:
@@ -162,24 +175,36 @@ class UNet(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Velocity ``[B, X, Y, Z, C]`` f32; ``generator`` draws the dropout masks
-        in training."""
+    def check_spatial(self, x: torch.Tensor) -> None:
         for d in x.shape[1:4]:
             if d % self.downsample_factor:
                 raise ValueError(
                     f"spatial dims {tuple(x.shape[1:4])} must be divisible by "
                     f"{self.downsample_factor}"
                 )
-        n = self.n_stages
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Velocity ``[B, X, Y, Z, C]`` f32; ``generator`` draws the dropout masks
+        in training."""
+        self.check_spatial(x)
         x = x.to(self.dtype or x.dtype)
         x = self.init_conv(x)
-        r = x
         t = self.time_mlp(time.to(x.dtype))
+        return self.trunk(x, t, generator)
 
+    def trunk(self, x: torch.Tensor, t: torch.Tensor, generator: Optional[torch.Generator],
+              fuse: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+        """Stages, bottleneck and output head, from the input conv's output ``x``
+        and the time embedding ``t``. ``fuse(name, x)``, where given, runs at the
+        start of every down and up stage (``name`` is ``downs_{i}_atb`` or
+        ``ups_{i}_atb``), before its first block."""
+        n = self.n_stages
+        r = x
         skips = []
         for i in range(n):
+            if fuse is not None:
+                x = fuse(f"downs_{i}_atb", x)
             x = getattr(self, f"downs_{i}_block1")(x, t, generator)
             skips.append(x)
             x = getattr(self, f"downs_{i}_block2")(x, t, generator)
@@ -192,6 +217,8 @@ class UNet(nn.Module):
         x = self.mid_block2(x, t, generator)
 
         for i in range(n):
+            if fuse is not None:
+                x = fuse(f"ups_{i}_atb", x)
             x = torch.cat([x, skips.pop()], dim=-1)
             x = getattr(self, f"ups_{i}_block1")(x, t, generator)
             x = torch.cat([x, skips.pop()], dim=-1)

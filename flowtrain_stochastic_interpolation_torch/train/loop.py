@@ -2,8 +2,9 @@
 
 Port of ``build_model``, ``init_model_variables`` and ``init_train_state`` in
 ``flowtrain_stochastic_interpolation_tpu/train/loop.py``, for the
-unconditional UNet. The host loop itself (``train``: data feed, metrics,
-checkpoints, callbacks) is not ported yet (ROADMAP Queue 1 item 7).
+unconditional UNet and the conditional one (``config.model.conditional``).
+The host loop itself (``train``: data feed, metrics, checkpoints, callbacks)
+is not ported yet (ROADMAP Queue 1 item 7).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -17,6 +18,7 @@ import torch
 
 from flowtrain_stochastic_interpolation_torch.config import ExperimentConfig
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
+from flowtrain_stochastic_interpolation_torch.models.unet_cond import UNet3DCond
 from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
 from flowtrain_stochastic_interpolation_torch.train.state import (
     Optimizer,
@@ -27,9 +29,10 @@ from flowtrain_stochastic_interpolation_torch.train.state import (
 
 
 def build_model(config: ExperimentConfig, device=None) -> UNet:
-    """The configured UNet, unseeded; its data channels are the embedding width."""
+    """The configured UNet (a :class:`UNet3DCond` when ``config.model.conditional``),
+    unseeded; its data channels are the embedding width."""
     mc = dataclasses.replace(config.model, data_channels=config.data.embedding_dim)
-    return UNet.from_config(mc, device=device)
+    return (UNet3DCond if mc.conditional else UNet).from_config(mc, device=device)
 
 
 def init_model_variables(config: ExperimentConfig, seed: Optional[int] = None,

@@ -35,9 +35,21 @@ from {PACKAGE}.ops.tap_conv import (  # the fourth slice: the tap-folded conv an
 )
 from {PACKAGE}.ops.gemm_probes import gemm_probe, gemm_probe_t, mma_probe
 from {PACKAGE}.tools import bench_gemm, bench_mma_shapes, bench_tap_conv
+from {PACKAGE}.models.unet_cond import EmbedATb, MixATb, UNet3DCond  # the conditional slice
+from {PACKAGE}.ops import ensemble, masks
+from {PACKAGE}.inference import build_atb, sample_conditional
+from {PACKAGE}.train.objectives import conditional_loss
+from {PACKAGE}.config import tiny_test
 import torch
 x = torch.zeros(1, 8, 8, 8, 2)
 assert tap_conv3d(x, torch.zeros(3, 3, 3, 2, 3), torch.zeros(3)).shape == (1, 8, 8, 8, 3)
+cond = UNet3DCond.from_config(tiny_test(conditional=True).model, device="cpu")
+x = torch.zeros(1, 8, 8, 8, 15)
+assert cond(x, x, torch.zeros(1)).shape == x.shape
+batch = torch.full((1, 8, 8, 8), 3)
+mask = masks.make_combined_mask(torch.Generator().manual_seed(0), batch)
+atb = build_atb(batch[0], mask[0], torch.eye(15))
+assert ensemble.vote_probabilities(batch, 15).shape == (8, 8, 8, 15)
 assert not any(n.split(".")[0] in {POISONED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), "modules")
 """
@@ -52,8 +64,9 @@ def _run(args, **kw):
 def test_port_and_chip_smoke_import_without_jax():
     proc = _run([sys.executable, "-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    # every module of the port, the training slice's (interpolants, data, train) too
-    assert int(proc.stdout.split()[0]) >= 23, proc.stdout
+    # every module of the port, the training slice's (interpolants, data, train) and the
+    # conditional slice's (models.unet_cond, ops.masks, ops.ensemble) too
+    assert int(proc.stdout.split()[0]) >= 26, proc.stdout
 
 
 def test_chip_smoke_without_a_card_exits_nonzero_and_says_why():

@@ -32,10 +32,16 @@ def _jax_unet(mc):
     )
 
 
-def random_params(model, x, t, seed, bandwidth):
-    """Seeded numpy parameters in the shapes of ``model.init``'s tree."""
+def random_params(model, x, t, seed, bandwidth, atb=None):
+    """Seeded numpy parameters in the shapes of ``model.init``'s tree (a
+    conditional model's ``init(x, atb, t)`` where ``atb`` is given)."""
+    return random_tree(model, (x, t) if atb is None else (x, atb, t), seed, bandwidth)
+
+
+def random_tree(model, args, seed, bandwidth):
+    """Seeded numpy parameters in the shapes of ``model.init(key, *args)``'s tree."""
     rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x, t)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *args)
 
     def draw(path, leaf):
         name = path[-1].key
