@@ -131,10 +131,34 @@ Phases, each printed on one flushed line with the seconds since start:
    must be finite), the launches per micro-step, and that the params changed on
    the accumulation boundaries only; fa16 adds a ``torch.profiler`` breakdown
    of one micro-step. After the flagship's steps, which leave the model in
-   training mode, two samplers from the same x0 must agree exactly.
+   training mode, two samplers from the same x0 must agree exactly;
+9. the app, the eleventh slice's main paths, on the trained release weights
+   (``artifacts/weights/uncond_demo_64``, read by the port's msgpack reader
+   without flax or msgpack; a missing file fails): their size, sha256, 299
+   bf16 leaves of 22,981,474 values and empty ``ema_params`` and
+   ``constants``; their bf16 forward on the card (K1 and K2) against f32 on
+   the CPU at 16³ and 64³ b1; their eval loss (``make_eval_loss`` on 4
+   synthetic 64³ volumes) under a tenth of seeded random weights' on the same
+   volumes and draws; one update of the recipe (``make_train_step`` at 64³
+   b1, accumulation 1, no dropout) from the same seeded weights and draws on
+   the card in bf16 (K1 and K2 6 times, and 6 in the eval loss after it)
+   against the CPU in f32: the loss before and after it, the gradient norm,
+   and the cosines of the gradients (Adam's first moment) and of the
+   updates; ``apps.unconditional.main`` in this process,
+   ``--preset flagship --mode inference`` from the release: 8 samples at 64³
+   in one batch, RK4 16 frames x 2 substeps (120 evaluations, K1 and K2 720
+   times each), 8 decoded int8 files in [-1, 13], samples/min, category
+   fractions and the mean prominence; then ``--mode train --steps 24`` twice
+   on one root directory at the flagship's b6 x accumulation 24 (one update a
+   run): the first without the pretrain smoke, the second with it (a 32-frame
+   RK4 callback at b4, 248 evaluations) and resuming from step 24 to 48; K1
+   and K2 6 times per micro-step, the params changed by each update,
+   ``metrics.csv`` with ``train_loss``, ``grad_norm`` and ``time_to_solve``,
+   checkpoints at 24 and 48, steps/s and peak memory beside the card's name
+   and power limit.
 
 The launch counts are set to 0 just before each main-path run (phases 4a-4c,
-5, 5b, 7 and 8) and read just after it. Then one JSON line per kernel (``{"kernels":
+5, 5b, 7, 8 and 9) and read just after it. Then one JSON line per kernel (``{"kernels":
 [...]}``), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
 """
@@ -143,16 +167,22 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from flowtrain_stochastic_interpolation_torch.apps import unconditional as app
 from flowtrain_stochastic_interpolation_torch.config import conditional_64, unconditional_64
 from flowtrain_stochastic_interpolation_torch.data.synthetic import synthetic_geology_batch
 from flowtrain_stochastic_interpolation_torch.inference import (
@@ -163,6 +193,10 @@ from flowtrain_stochastic_interpolation_torch.inference import (
     sample_unconditional,
 )
 from flowtrain_stochastic_interpolation_torch.models.attention import Attention, LinearAttention
+from flowtrain_stochastic_interpolation_torch.models.persistence import (
+    load_release_weights,
+    state_dict_from_release,
+)
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build, ensemble
 from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
@@ -176,8 +210,15 @@ from flowtrain_stochastic_interpolation_torch.tools import bench_folded
 from flowtrain_stochastic_interpolation_torch.tools import bench_gemm as bg
 from flowtrain_stochastic_interpolation_torch.tools import bench_mma_shapes as bms
 from flowtrain_stochastic_interpolation_torch.tools import bench_tap_conv as btc
-from flowtrain_stochastic_interpolation_torch.train.loop import build_model, init_train_state
-from flowtrain_stochastic_interpolation_torch.train.steps import make_train_step
+from flowtrain_stochastic_interpolation_torch.train import objectives
+from flowtrain_stochastic_interpolation_torch.train.checkpoint import find_steps
+from flowtrain_stochastic_interpolation_torch.train.loop import (
+    build_model,
+    init_model_variables,
+    init_train_state,
+)
+from flowtrain_stochastic_interpolation_torch.train.steps import make_eval_loss, make_train_step
+from flowtrain_stochastic_interpolation_torch.utils.msgpack_tree import Bfloat16
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, bf16 tensor-core rate
 # and the f32 rate of the FP32 cores (K4a and K4b compute in f32 there)
@@ -311,6 +352,29 @@ TRAIN_MICRO_BATCH, TRAIN_ACCUM, TRAIN_WARMUP, TRAIN_STEPS = 4, 2, 2, 8
 COND_SIDE, COND_SAMPLES, COND_BATCH, COND_FRAMES = 64, 8, 4, 3
 COND_MICRO_BATCH, COND_ACCUM, COND_STEPS = 8, 4, 6
 DIKE_CATEGORY = 13  # GeoGen's dikes, whose probability the ensemble analysis maps
+# the app phase: the trained release weights of the flagship (3000 steps, bf16,
+# EMA off, so ema_params and constants are empty), read without flax or msgpack
+RELEASE_DIR = Path(__file__).resolve().parent / "artifacts" / "weights" / "uncond_demo_64"
+RELEASE_LEAVES, RELEASE_VALUES = 299, 22_981_474
+# the eval loss of the trained weights must be under this share of random weights'
+# (the release trained from 3.84 to 0.070)
+TRAINED_LOSS_SHARE = 0.1
+EVAL_BATCH = 4
+# the recipe's first update at b1 x accumulation 1 without dropout, bf16 on the card
+# against f32 on the CPU from the same weights and draws. Loss and gradient norm
+# within twice the forward's tolerance; the gradients (Adam's first moment) nearly
+# parallel; Adam's first step moves each weight by about lr·sign(g), so a gradient
+# component within bf16's error of 0 may flip its step: cosine 1 - 2·(the share
+# flipped), at least 0.9 for a share up to 5%; the loss after the update within 10%,
+# and it must move the same way on both
+UPDATE_LOSS_REL_TOL = 2 * FORWARD_REL_TOL
+UPDATE_GRAD_COSINE, UPDATE_STEP_COSINE, UPDATE_AFTER_REL_TOL = 0.99, 0.9, 0.1
+# the app's inference: 8 samples in one batch at the flagship's RK4, 16 frames x 2
+# substeps (120 evaluations, K1 and K2 6 times each); training: 24 micro-steps a
+# run at the flagship's b6 x accumulation 24 (one update a run); the pretrain
+# smoke samples 4 volumes with RK4 over 32 frames x 2 substeps (248 evaluations)
+APP_SAMPLES, APP_STEPS = 8, 24
+SMOKE_EVALUATIONS = (32 - 1) * 2 * 4
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
     "folded_project": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
@@ -1638,6 +1702,264 @@ def train(label: str, cfg, per_step: dict, steps: int = TRAIN_STEPS, profile: bo
     return dict(ms=median, peak_gib=peak, launches=launches, losses=losses)
 
 
+# ---------------------------------------------------------------------------
+# The unconditional app on the trained release weights (the eleventh slice)
+# ---------------------------------------------------------------------------
+def count_leaves(tree) -> tuple:
+    """(leaves, values, every leaf bf16) of a nested dict tree."""
+    leaves = list(_tree_leaves(tree))
+    return (len(leaves), sum(int(np.prod(v.shape)) for v in leaves),
+            all(isinstance(v, Bfloat16) for v in leaves))
+
+
+def _tree_leaves(tree):
+    for value in tree.values():
+        if isinstance(value, dict):
+            yield from _tree_leaves(value)
+        else:
+            yield value
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(a.double() @ b.double() / (a.double().norm() * b.double().norm()))
+
+
+def first_update(smi: str) -> dict:
+    """One update of the flagship recipe (64³ b1, accumulation 1, no dropout)
+    through ``make_train_step`` from the same seeded weights and the same draws
+    (t = 0.5, exact in bf16): the card (bf16, K1 and K2) against the CPU (f32).
+    The loss before and after it (``make_eval_loss`` on the same draws), the
+    gradient norm, the gradients' direction (Adam's first moment) and the
+    update's direction must agree. Returns the card's launches."""
+    base = unconditional_64()
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, dropout=0.0),
+        data=dataclasses.replace(base.data, batch_size=1),
+        training=dataclasses.replace(base.training, accumulate_grad_batches=1))
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="float32"))
+    gen = torch.Generator().manual_seed(7)
+    batch = synthetic_geology_batch(gen, 1, cfg.data.shape)
+    table = torch.from_numpy(simplex_embedding(cfg.data.num_categories, cfg.data.embedding_dim))
+    _, x1, x0, _ = objectives._draw_common(gen, batch, table, cfg.training.time_range,
+                                           cfg.training.x1_noise)
+    draws = (x1, x0, torch.full((1,), 0.5))
+    out, weights = {}, None
+    for side, device, c in (("card", "cuda", cfg), ("cpu", "cpu", f32)):
+        model, tx, state = init_train_state(c, device=device)
+        if weights is None:
+            weights = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(weights)
+        before = [p.detach().clone() for p in state.params.values()]
+        on = tuple(a.to(device) for a in draws)
+        start = time.perf_counter()
+        reset_counts()
+        with mock.patch.object(objectives, "_draw_common", lambda *a: (None, *on)):
+            state, metrics = make_train_step(model, tx, c)(state, batch.to(device),
+                                                           torch.Generator(device=device))
+            after = make_eval_loss(model, c)(state, batch.to(device),
+                                             torch.Generator(device=device))
+        out[side] = dict(
+            launches=read_counts(), seconds=time.perf_counter() - start,
+            loss=float(metrics["train_loss"]), after=float(after["train_loss"]),
+            grad_norm=float(metrics["grad_norm"]),
+            mu=torch.cat([m.reshape(-1).float().cpu() for m in state.opt_state.mu]),
+            step=torch.cat([(p.detach() - b).reshape(-1).float().cpu()
+                            for p, b in zip(state.params.values(), before)]))
+        check(state.opt_state.updates == 1, f"first update ({side}): no update")
+        del model, tx, state
+    torch.cuda.empty_cache()
+    card, cpu = out["card"], out["cpu"]
+    grad_cos, step_cos = cosine(card["mu"], cpu["mu"]), cosine(card["step"], cpu["step"])
+    rel = {key: abs(card[key] - cpu[key]) / abs(cpu[key]) for key in ("loss", "after", "grad_norm")}
+    flipped = float((card["step"] * cpu["step"] < 0).float().mean())
+    say("app", f"first update of the recipe (64³ b1, accumulation 1, no dropout, lr "
+        f"{cfg.training.learning_rate:g}), card bf16 ({card['seconds']:.1f} s, launches "
+        f"{card['launches']}) against CPU f32 ({cpu['seconds']:.1f} s): loss {card['loss']:.4f} "
+        f"-> {card['after']:.4f} on the card, {cpu['loss']:.4f} -> {cpu['after']:.4f} on the CPU "
+        f"(relative differences {rel['loss']:.2e} before, {rel['after']:.2e} after); grad_norm "
+        f"{card['grad_norm']:.4f} against {cpu['grad_norm']:.4f}; cosine of the gradients "
+        f"{grad_cos:.6f}, of the updates {step_cos:.6f} ({flipped:.2e} of the weights stepped "
+        f"the other way); mean |update| {float(card['step'].abs().mean()):.3e} against "
+        f"{float(cpu['step'].abs().mean()):.3e}; {smi}")
+    check(all(np.isfinite([card[k], cpu[k]]).all() for k in ("loss", "after", "grad_norm")),
+          "first update: non-finite loss or gradient norm")
+    check(card["launches"] == {name: (12 if name in ("folded_context", "folded_project") else 0)
+                               for name in KERNELS},
+          f"first update: card launches {card['launches']}")
+    check(rel["loss"] < UPDATE_LOSS_REL_TOL and rel["grad_norm"] < UPDATE_LOSS_REL_TOL,
+          f"first update: loss or gradient norm off by {rel}")
+    check(grad_cos > UPDATE_GRAD_COSINE, f"first update: gradient cosine {grad_cos:.6f}")
+    check(step_cos > UPDATE_STEP_COSINE, f"first update: update cosine {step_cos:.6f}")
+    check(rel["after"] < UPDATE_AFTER_REL_TOL
+          and (card["after"] > card["loss"]) == (cpu["after"] > cpu["loss"]),
+          f"first update: the loss after it differs: card {card['loss']:.4f} -> "
+          f"{card['after']:.4f}, CPU {cpu['loss']:.4f} -> {cpu['after']:.4f}")
+    return card["launches"]
+
+
+def run_app(argv: list) -> tuple:
+    """``app.main(argv)`` in this process, its standard output captured and
+    echoed: ``(result, output)``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = app.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"    | {line}", flush=True)
+    return result, out
+
+
+def phase_app(smi: str) -> dict:
+    """The trained release weights, read by the port's msgpack reader; their
+    forward on the card against the CPU; their eval loss against random
+    weights'; the app's inference at the flagship preset from them; and the
+    app's training twice on one root directory, the second run resuming."""
+    weights = RELEASE_DIR / "weights.msgpack"
+    check(weights.is_file(), f"app: {weights} is missing (the release weights must reach the card)")
+    data = weights.read_bytes()
+    start = time.perf_counter()
+    tree, config, meta = load_release_weights(str(RELEASE_DIR), cast_to=None)
+    read_s = time.perf_counter() - start
+    leaves, values, all_bf16 = count_leaves(tree["params"])
+    say("app", f"{weights.relative_to(RELEASE_DIR.parents[2])}: {len(data)} bytes, sha256 "
+        f"{hashlib.sha256(data).hexdigest()}; read in {read_s:.3f} s by the port's reader: "
+        f"{leaves} leaves, {values} values, all bf16 {all_bf16}; ema_params "
+        f"{tree['ema_params']!r}, constants {tree['constants']!r}; meta {meta}")
+    cfg = unconditional_64()
+    check((leaves, values, all_bf16) == (RELEASE_LEAVES, RELEASE_VALUES, True),
+          f"app: release params {leaves} leaves, {values} values, all bf16 {all_bf16}")
+    check(tree["ema_params"] == {} and tree["constants"] == {},
+          "app: the release has EMA params or constants")
+    check(config is not None and config.model == cfg.model,
+          "app: the release's config.json is not the flagship model's")
+
+    # the trained forward on the card (bf16, K1 and K2) against f32 on the CPU
+    model = build_model(cfg, device="cuda").eval()
+    model.load_state_dict(state_dict_from_release(tree, model))
+    reference_check("trained flagship", model, cfg, 16,
+                    {"folded_context": 2, "folded_project": 2}, phase="app")
+    reference_check("trained flagship", model, cfg, 64,
+                    {"folded_context": 6, "folded_project": 6}, phase="app")
+
+    # eval loss: the trained weights against seeded random ones, same volumes and draws
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = synthetic_geology_batch(gen, EVAL_BATCH, cfg.data.shape)
+    random_model, _, state = init_train_state(cfg)
+    losses = {}
+    for label in ("random", "trained"):
+        if label == "trained":
+            random_model.load_state_dict(model.state_dict())
+        metrics = make_eval_loss(random_model, cfg)(
+            state, batch, torch.Generator(device="cuda").manual_seed(5))
+        losses[label] = float(metrics["train_loss"])
+    say("app", f"eval loss (unconditional_loss, {EVAL_BATCH} synthetic 64³ volumes, the same "
+        f"draws): trained {losses['trained']:.4f}, random {losses['random']:.4f}, ratio "
+        f"{losses['trained'] / losses['random']:.4f} (must be under {TRAINED_LOSS_SHARE}); {smi}")
+    check(np.isfinite(list(losses.values())).all(), f"app: non-finite eval loss {losses}")
+    check(losses["trained"] < TRAINED_LOSS_SHARE * losses["random"],
+          f"app: trained eval loss {losses['trained']:.4f} not under a tenth of random "
+          f"{losses['random']:.4f}")
+    del model, random_model, state, batch
+    torch.cuda.empty_cache()
+
+    launches = {"app first update": first_update(smi)}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_app-", dir=RELEASE_DIR.parents[2]) as root:
+        # inference from the release weights, as a user runs it
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result, out = run_app([
+            "--preset", "flagship", "--mode", "inference", "--checkpoint-path", str(RELEASE_DIR),
+            "--n-samples", str(APP_SAMPLES), "--batch-size", str(APP_SAMPLES), "--seed", "100",
+            "--no-save-images", "--root-dir", root])
+        launches["app inference"] = counts = read_counts()
+        sampled = result["inference"]
+        nfe = sampled.nfe
+        seconds = sum(sampled.seconds_per_batch)
+        samples_dir = Path(root) / "samples" / cfg.name
+        files = sorted(samples_dir.glob("decoded_s100_*.npy"))
+        vols = [np.load(f) for f in files]
+        check(f"loaded release weights step {meta.get('step')}" in out,
+              "app: inference did not load the release weights")
+        check(len(vols) == APP_SAMPLES and all(v.shape == (64, 64, 64) and v.dtype == np.int8
+                                              for v in vols),
+              f"app: decoded files {[f.name for f in files]}")
+        cats = np.stack(vols)
+        check(int(cats.min()) >= -1 and int(cats.max()) <= cfg.data.num_categories - 2,
+              f"app: categories in [{cats.min()}, {cats.max()}]")
+        want = 6 * nfe
+        check(nfe == 120 and all(counts[name] == (want if name in ("folded_context",
+                                                                     "folded_project") else 0)
+                                 for name in KERNELS),
+              f"app inference: nfe {nfe}, launches {counts}")
+        fractions = np.bincount(cats.ravel() + 1, minlength=cfg.data.num_categories) / cats.size
+        prom = sampled.prominence
+        check(prom is not None and prom.shape == (APP_SAMPLES, 64, 64, 64)
+              and bool(np.isfinite(prom).all()) and float(prom.min()) >= 0.0
+              and float(prom.max()) <= 1.0, "app: prominence missing or outside [0, 1]")
+        say("app", f"inference: {APP_SAMPLES} samples at 64³ b{APP_SAMPLES}, rk4 16 frames x 2 "
+            f"substeps, nfe {nfe}: {seconds:.3f} s, {APP_SAMPLES / seconds * 60:.2f} samples/min "
+            f"(one batch, cuDNN's set-up included), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}; {smi}")
+        say("app", f"inference: category fractions (air = -1 first) "
+            f"{[round(float(f), 4) for f in fractions]}; mean prominence {float(prom.mean()):.4f}")
+        torch.cuda.empty_cache()
+
+        # training twice on one root directory: the second run resumes
+        flagship = unconditional_64()
+        init_params = {k: v.detach().clone() for k, v in
+                       init_model_variables(flagship, device="cuda").named_parameters()}
+        runs = []
+        for i, smoke in enumerate((False, True)):
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            result, out = run_app([
+                "--preset", "flagship", "--mode", "train", "--steps", str(APP_STEPS),
+                "--no-save-images", "--root-dir", root]
+                + ([] if smoke else ["--no-pretrain-smoke"]))
+            counts = read_counts()
+            launches[f"app train {i + 1}"] = counts
+            trained = result["train"]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            smoke_evals = SMOKE_EVALUATIONS if smoke else 0
+            per_step = {name: (n - 6 * smoke_evals * (name in ("folded_context",
+                                                                "folded_project"))) / APP_STEPS
+                        for name, n in counts.items()}
+            state = trained.state
+            runs.append({k: v.detach().clone() for k, v in state.params.items()})
+            say("app", f"train run {i + 1} (pretrain smoke {smoke}): steps {state.step - APP_STEPS * i}"
+                f" -> {state.step}, {trained.steps_per_sec:.3f} micro-steps/s after the first "
+                f"({trained.steps_per_sec_with_compile:.3f} with it) at b{flagship.data.batch_size} "
+                f"x accumulation {flagship.training.accumulate_grad_batches}, peak {peak:.2f} GiB; "
+                f"launches {counts}, per micro-step {per_step}; losses "
+                f"{[round(h['train_loss'], 4) for h in trained.history]}; {smi}")
+            check(state.step == APP_STEPS * (i + 1) and state.opt_state.updates == i + 1,
+                  f"app train run {i + 1}: step {state.step}, updates {state.opt_state.updates}")
+            check((f"[train] resumed from step {APP_STEPS}" in out) == (i == 1),
+                  f"app train run {i + 1}: resume message {'missing' if i else 'unexpected'}")
+            check(all(per_step[name] == (6 if name in ("folded_context", "folded_project") else 0)
+                      for name in KERNELS), f"app train run {i + 1}: launches {counts}")
+            check(all(np.isfinite([h["train_loss"], h["grad_norm"]]).all()
+                      for h in trained.history), f"app train run {i + 1}: non-finite metrics")
+            check(("[InferenceCallback] pretrain" in out) == smoke,
+                  f"app train run {i + 1}: pretrain smoke ran {not smoke}")
+        before = (init_params, runs[0])
+        for i, (old, new) in enumerate(zip(before, runs)):
+            changed = sum(not torch.equal(old[k], new[k]) for k in new)
+            check(changed > 0, f"app train run {i + 1}: the update changed no parameter")
+            say("app", f"train run {i + 1}: {changed} of {len(new)} parameters changed at its update")
+        ckpt_dir = Path(root) / "saved_models" / flagship.name
+        metrics_csv = Path(root) / "metrics" / flagship.name / "metrics.csv"
+        header = metrics_csv.read_text().splitlines()[0].split(",")
+        steps = find_steps(str(ckpt_dir))
+        say("app", f"checkpoints at steps {steps}; metrics.csv columns {header}")
+        check(steps[-1] == 2 * APP_STEPS and APP_STEPS in steps, f"app: checkpoints {steps}")
+        check({"train_loss", "grad_norm", "time_to_solve"} <= set(header),
+              f"app: metrics.csv columns {header}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false); "
@@ -1687,6 +2009,7 @@ def main() -> int:
         "fa16", flagship_train_config(FA16),
         {"flash_attention": 2, "folded_context": 4, "folded_project": 4},
         profile=True)["launches"]
+    launches.update(phase_app(smi))
 
     kernels = []
     for name in KERNELS:

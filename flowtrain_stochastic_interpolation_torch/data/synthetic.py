@@ -10,14 +10,25 @@ the same distributions and conventions: int32 categories in
 
 The whole batch is generated at once; every random draw carries a leading
 batch axis, so the items are independent.
+
+:class:`SyntheticGeoDataset` is the streaming surface the training loop
+reads (the JAX package's ``SyntheticGeoDataset``): ``batches(batch_size,
+epoch)`` yields an epoch's batches on the device, batch ``i`` drawn from a
+generator seeded from ``(seed, epoch, i)`` (the counterpart of JAX's
+``fold_in`` chain), so a stream restarted at an epoch repeats it exactly.
+:func:`get_dataset` resolves ``DataConfig.source``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
+
+from flowtrain_stochastic_interpolation_torch.config import DataConfig
+from flowtrain_stochastic_interpolation_torch.device import resolve_device
+from flowtrain_stochastic_interpolation_torch.utils.rng import generator
 
 _MAX_DIKES = 3
 _N_SURF_WAVES = 4
@@ -125,3 +136,35 @@ def synthetic_geology_batch(generator: torch.Generator, batch_size: int,
     """``[B, X, Y, Z]`` independent volumes, on the generator's device."""
     return _stages(generator, batch_size, tuple(shape), n_categories)["topography"]
 
+
+
+class SyntheticGeoDataset:
+    """The synthetic generator as a stream of epochs of ``dataset_size`` volumes
+    on ``device`` (``cuda`` by default)."""
+
+    def __init__(self, model_resolution: Tuple[int, int, int] = (64, 64, 64),
+                 dataset_size: int = 10_000, n_categories: int = 15,
+                 seed: int = 0, device=None):
+        self.model_resolution = tuple(model_resolution)
+        self.dataset_size = dataset_size
+        self.n_categories = n_categories
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def batches(self, batch_size: int, epoch: int = 0) -> Iterator[torch.Tensor]:
+        """``max(dataset_size // batch_size, 1)`` batches ``[B, X, Y, Z]`` int32."""
+        for i in range(max(self.dataset_size // batch_size, 1)):
+            gen = generator(self.device, self.seed, epoch, i)
+            yield synthetic_geology_batch(gen, batch_size, self.model_resolution,
+                                          self.n_categories)
+
+
+def get_dataset(cfg: DataConfig, seed: int = 0, device=None) -> SyntheticGeoDataset:
+    """The configured data source. Only ``"synthetic"`` is ported."""
+    if cfg.source != "synthetic":
+        raise NotImplementedError(
+            f"data source {cfg.source!r} is not ported: GeoGen and numpy sources are "
+            "ROADMAP Queue 1 item 9"
+        )
+    return SyntheticGeoDataset(cfg.shape, cfg.epoch_size, cfg.num_categories, seed,
+                               device=device)

@@ -6,7 +6,7 @@ conditional model :func:`sample_conditional` and :func:`build_atb`. The
 velocity is the UNet, ``model(x, t)``, or the conditional UNet,
 ``model(x, atb, t)``; the state may be bf16 (the model computes in its own
 dtype and the velocity is cast to the state's); the final state is decoded by
-cosine argmax.
+cosine argmax; ``with_prominence`` adds its top-1 minus top-2 softmax margin.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -22,7 +22,12 @@ import torch
 from torch import nn
 
 from flowtrain_stochastic_interpolation_torch.device import resolve_device
-from flowtrain_stochastic_interpolation_torch.ops.embedding import decode, embed
+from flowtrain_stochastic_interpolation_torch.ops.embedding import (
+    decode,
+    decode_logits,
+    embed,
+    prominence,
+)
 from flowtrain_stochastic_interpolation_torch.solvers import (
     solve_ode,
     solve_ode_final,
@@ -34,6 +39,7 @@ from flowtrain_stochastic_interpolation_torch.solvers import (
 class SampleResult:
     decoded: np.ndarray                 # [N, X, Y, Z] int64 (0-based table rows)
     trajectory: Optional[np.ndarray]    # [n_frames, N, X, Y, Z, E] or None
+    prominence: Optional[np.ndarray] = None  # [N, X, Y, Z] f32 or None
     seconds_per_batch: List[float] = field(default_factory=list)
     nfe: Optional[int] = None
 
@@ -49,8 +55,10 @@ def make_sampler(
     substeps: int = 2,
     method: str = "rk4",
     keep_trajectory: bool = False,
+    with_prominence: bool = False,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Build ``sampler(x0) -> {"decoded", "nfe"[, "trajectory"]}`` for a UNet, or
+    """Build ``sampler(x0) -> {"decoded", "nfe"[, "prominence"][, "trajectory"]}``
+    for a UNet, or
     ``sampler(x0, atb)`` with ``conditional=True``, whose velocity is
     ``model(x, atb, t)``.
 
@@ -79,6 +87,8 @@ def make_sampler(
         finally:
             model.train(was_training)
         out = {"decoded": decode(final, table), "nfe": nfe}
+        if with_prominence:
+            out["prominence"] = prominence(decode_logits(final, table))
         if keep_trajectory:
             out["trajectory"] = traj
         return out
@@ -108,7 +118,7 @@ def _run_batches(sampler, n_samples: int, batch_size: int,
                  inputs: Callable[[int, int], tuple], verbose: bool) -> SampleResult:
     """``sampler(*inputs(b, bs))`` for each batch ``b`` of ``bs`` samples, timed to
     the decoded maps' arrival on the host."""
-    decoded, trajs, times = [], [], []
+    decoded, trajs, proms, times = [], [], [], []
     n_batches = (n_samples - 1) // batch_size + 1
     nfe = None
     for b in range(n_batches):
@@ -122,11 +132,14 @@ def _run_batches(sampler, n_samples: int, batch_size: int,
         decoded.append(batch_decoded)
         if "trajectory" in out:
             trajs.append(out["trajectory"].float().cpu().numpy())
+        if "prominence" in out:
+            proms.append(out["prominence"].cpu().numpy())
         nfe = out["nfe"]
 
     return SampleResult(
         decoded=np.concatenate(decoded, axis=0),
         trajectory=np.concatenate(trajs, axis=1) if trajs else None,
+        prominence=np.concatenate(proms, axis=0) if proms else None,
         seconds_per_batch=times,
         nfe=nfe,
     )

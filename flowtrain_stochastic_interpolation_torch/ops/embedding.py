@@ -6,7 +6,9 @@ Port of ``flowtrain_stochastic_interpolation_tpu/ops/embedding.py``:
   origin of ``n_dims``-space and row-normalised;
 * ``embed`` maps ``[B, X, Y, Z]`` categorical indices (air = -1, so indices
   are shifted by +1) to channels-last ``[B, X, Y, Z, E]`` vectors;
-* ``decode`` is nearest-neighbour cosine similarity (argmax over the logits).
+* ``decode`` is nearest-neighbour cosine similarity (argmax over the logits);
+* ``prominence`` is the top-1 minus top-2 softmax probability of the logits,
+  the per-voxel certainty map of the sampling callback.
 """
 
 from __future__ import annotations
@@ -48,3 +50,11 @@ def decode_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def decode(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour cosine decode: ``[..., E]`` -> int64 ``[...]`` (0-based rows)."""
     return torch.argmax(decode_logits(x, table), dim=-1)
+
+
+def prominence(logits: torch.Tensor) -> torch.Tensor:
+    """Top-1 minus top-2 softmax probability over the last axis, in [0, 1]."""
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    top2 = torch.topk(probs, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]

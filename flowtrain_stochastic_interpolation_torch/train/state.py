@@ -17,12 +17,18 @@ matches optax rather than torch's helpers:
 
 Everything updates in place, with ``torch._foreach`` operations over the
 parameter list. The EMA shadow is updated on every micro-step.
+
+``TrainState.state_dict`` / ``load_state_dict`` carry the whole state (the
+step, the params, the optimiser's counters and moments, the EMA shadow and the
+constants) to and from ``torch.save``: what the JAX package's orbax
+checkpoints hold. ``with_ema_applied`` is the JAX state's method of that name.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -51,6 +57,53 @@ class TrainState:
     constants: Dict[str, torch.Tensor]         # the embedding table
     opt_state: OptState
     ema_params: Optional[Dict[str, torch.Tensor]]  # None when EMA is off
+
+    def with_ema_applied(self) -> "TrainState":
+        """The state with the EMA shadow as its params (for sampling); the state
+        itself when EMA is off."""
+        if self.ema_params is None:
+            return self
+        return dataclasses.replace(self, params=self.ema_params)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything the state holds, as tensors, ints, lists and dicts."""
+        opt = self.opt_state
+        return {
+            "step": self.step,
+            "params": dict(self.params),
+            "constants": dict(self.constants),
+            "opt_state": {"mini_step": opt.mini_step, "updates": opt.updates,
+                          "acc": list(opt.acc), "mu": list(opt.mu), "nu": list(opt.nu)},
+            "ema_params": None if self.ema_params is None else dict(self.ema_params),
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: Dict[str, Any]) -> None:
+        """Copy ``saved`` (a :meth:`state_dict`) into this state's tensors in
+        place, so that a model whose parameters are ``params`` holds them too.
+        Names, shapes and the presence of EMA and accumulation must agree."""
+        def copy(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], what: str):
+            if set(dst) != set(src):
+                raise KeyError(f"{what}: the checkpoint's names differ from the state's")
+            torch._foreach_copy_([dst[k] for k in dst], [src[k] for k in dst])
+
+        def copy_list(dst: List[torch.Tensor], src: List[torch.Tensor], what: str):
+            if len(dst) != len(src):
+                raise ValueError(f"{what}: {len(src)} tensors saved, {len(dst)} in the state")
+            if dst:
+                torch._foreach_copy_(dst, list(src))
+
+        if (saved["ema_params"] is None) != (self.ema_params is None):
+            raise ValueError("the checkpoint and the state disagree on EMA")
+        copy(self.params, saved["params"], "params")
+        copy(self.constants, saved["constants"], "constants")
+        if self.ema_params is not None:
+            copy(self.ema_params, saved["ema_params"], "ema_params")
+        opt, saved_opt = self.opt_state, saved["opt_state"]
+        for name in ("acc", "mu", "nu"):
+            copy_list(getattr(opt, name), saved_opt[name], name)
+        opt.mini_step, opt.updates = int(saved_opt["mini_step"]), int(saved_opt["updates"])
+        self.step = int(saved["step"])
 
 
 class Optimizer:

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX on its import path, no quiet CPU fallback,
-and a kernel build that targets Hopper into an ignored directory."""
+a kernel build that targets Hopper into an ignored directory, and a chip copy
+that carries the release weights."""
 
 import fnmatch
 import os
@@ -11,8 +12,10 @@ from flowtrain_stochastic_interpolation_torch.ops import cuda_build
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = "flowtrain_stochastic_interpolation_torch"
-POISONED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+# matplotlib may be imported only when a picture is asked for; nothing imports wandb
+POISONED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "matplotlib", "wandb",
             "flowtrain_stochastic_interpolation_tpu")
+RELEASE_WEIGHTS = "artifacts/weights/uncond_demo_64/weights.msgpack"
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -39,7 +42,16 @@ from {PACKAGE}.models.unet_cond import EmbedATb, MixATb, UNet3DCond  # the condi
 from {PACKAGE}.ops import ensemble, masks
 from {PACKAGE}.inference import build_atb, sample_conditional
 from {PACKAGE}.train.objectives import conditional_loss
-from {PACKAGE}.config import tiny_test
+from {PACKAGE}.config import tiny_test, unconditional_64
+from {PACKAGE}.apps import unconditional  # the eleventh slice: the app and its layers
+from {PACKAGE}.models.persistence import load_release_weights, save_release_weights
+from {PACKAGE}.train.callbacks import InferenceCallback
+from {PACKAGE}.train.checkpoint import CheckpointManager
+from {PACKAGE}.train.loop import train
+from {PACKAGE}.utils import logging, msgpack_tree, plotting
+tree, cfg, meta = load_release_weights("{RELEASE_WEIGHTS.rsplit('/', 1)[0]}")
+leaves = lambda t: sum(leaves(v) if isinstance(v, dict) else 1 for v in t.values())
+assert leaves(tree["params"]) == 299 and meta["step"] == 3000 and cfg.model == unconditional_64().model
 import torch
 x = torch.zeros(1, 8, 8, 8, 2)
 assert tap_conv3d(x, torch.zeros(3, 3, 3, 2, 3), torch.zeros(3)).shape == (1, 8, 8, 8, 3)
@@ -64,9 +76,50 @@ def _run(args, **kw):
 def test_port_and_chip_smoke_import_without_jax():
     proc = _run([sys.executable, "-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    # every module of the port, the training slice's (interpolants, data, train) and the
-    # conditional slice's (models.unet_cond, ops.masks, ops.ensemble) too
-    assert int(proc.stdout.split()[0]) >= 26, proc.stdout
+    # every module of the port, the training slice's (interpolants, data, train), the
+    # conditional slice's (models.unet_cond, ops.masks, ops.ensemble) and the app's
+    # (apps, utils, train.checkpoint, train.callbacks) too
+    assert int(proc.stdout.split()[0]) >= 37, proc.stdout
+
+
+def test_importing_the_app_runs_nothing(tmp_path):
+    apps = ROOT / PACKAGE / "apps"
+    before = sorted(p.name for p in apps.iterdir())
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import {PACKAGE}.apps.unconditional as app; print(app.main)"],
+        cwd=tmp_path, env=dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("<function main") and proc.stderr == ""
+    assert sorted(p.name for p in apps.iterdir()) == before and not any(tmp_path.iterdir())
+
+
+def _copy_patterns():
+    return [line.strip() for line in (ROOT / ".chiprunignore").read_text().splitlines()
+            if line.strip() and not line.startswith("#")]
+
+
+def _copy_ignores(path: str) -> bool:
+    """Whether a ``.chiprunignore`` pattern matches ``path``: its name, the path
+    itself, the path under a "./" or a directory prefix, or any part of it after a
+    "/", with "*" crossing "/" (the chip copy matches whole paths so)."""
+    candidates = [path, "./" + path, "repo/" + path]
+    candidates += [path[i + 1:] for i, ch in enumerate(path) if ch == "/"]
+    return any(fnmatch.fnmatch(c, p) for c in candidates for p in _copy_patterns())
+
+
+def test_release_weights_reach_the_chip_copy_and_git_keeps_them():
+    assert (ROOT / RELEASE_WEIGHTS).is_file()
+    check = ["git", "check-ignore", "--no-index", "-q"]
+    assert _run(check + [RELEASE_WEIGHTS]).returncode == 1  # not ignored
+    assert _run(check + [RELEASE_WEIGHTS.replace("uncond_demo_64", "another_run")]).returncode == 0
+    assert _run(check + [f"{PACKAGE}/_build/linear_attention.so"]).returncode == 0
+    assert not _copy_ignores(RELEASE_WEIGHTS)
+    # the msgpack rule is narrowed, not dropped: other msgpack files stay out of the copy
+    for other in ("artifacts/weights/uncond_demo_64/params.msgpack", "x/weights2.msgpack",
+                  "x/myweights.msgpack", "checkpoints/ema.msgpack", "w.msgpack"):
+        assert _copy_ignores(other), other
+    assert _copy_ignores("artifacts/traces/run/vm.xplane.pb")
 
 
 def test_chip_smoke_without_a_card_exits_nonzero_and_says_why():
