@@ -155,10 +155,37 @@ Phases, each printed on one flushed line with the seconds since start:
    and K2 6 times per micro-step, the params changed by each update,
    ``metrics.csv`` with ``train_loss``, ``grad_norm`` and ``time_to_solve``,
    checkpoints at 24 and 48, steps/s and peak memory beside the card's name
-   and power limit.
+   and power limit;
+10. the samplers and the conditional apps, the twelfth slice's main paths:
+   a. ``apps.unconditional.main --adaptive`` from the trained release, 64³ b1,
+      float32 state: dopri5 at the recipe's atol = rtol = 1e-6, its NFE
+      positive, K1 and K2 exactly 6 x NFE times each, the final state finite
+      and the decoded volume in [-1, 13]; its NFE and seconds, and its decode
+      agreement and relative L2 against the 120-evaluation RK4 solve from the
+      same state, printed with no threshold;
+   b. ``sample_unconditional(method="sde")`` from the release at 64³ b8, eps
+      0.5 with the linear-decay schedule, 16 frames x 2 substeps (30
+      evaluations, K1 and K2 180 times each), twice from one seed (the first
+      keeping its trajectory, whose last state must be finite): the decodes
+      equal, and other than phase 9's RK4 decodes from the same x0; category
+      fractions and samples/min beside phase 9's;
+   c. ``make_sampler(frame_dispatch=True)`` from the release at 64³ b2, RK4 over
+      4 frames x 2 substeps (24 evaluations): its final state equal to the
+      plain sampler's bit for bit;
+   d. ``apps.inference_experiments.main --preset flagship`` on seeded fresh
+      ``conditional_64`` weights: create-data (one scenario), populate with
+      ``--method sde`` and then ``--method rk4`` (an ensemble of 4 at b4: 14
+      and 56 evaluations, K1 and K2 6 times each), analyze; the files and
+      maps written, the seconds per batch and the voxel accuracy;
+   e. ``apps.conditional.main --preset flagship --steps 8`` (2 updates at b8 x
+      4; K1 and K2 6 times per micro-step, the loss and its parts finite),
+      then the repaired ``InferenceCallback.run_inference`` on that state:
+      zero observations, 4 samples over 32 frames x 2 substeps (248
+      evaluations, K1 and K2 6 times each); micro-steps/s, peak memory and
+      ``time_to_solve``.
 
 The launch counts are set to 0 just before each main-path run (phases 4a-4c,
-5, 5b, 7, 8 and 9) and read just after it. Then one JSON line per kernel (``{"kernels":
+5, 5b, 7, 8, 9 and 10) and read just after it. Then one JSON line per kernel (``{"kernels":
 [...]}``), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
 """
@@ -182,6 +209,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from flowtrain_stochastic_interpolation_torch.apps import conditional as cond_app
+from flowtrain_stochastic_interpolation_torch.apps import inference_experiments as exp_app
 from flowtrain_stochastic_interpolation_torch.apps import unconditional as app
 from flowtrain_stochastic_interpolation_torch.config import conditional_64, unconditional_64
 from flowtrain_stochastic_interpolation_torch.data.synthetic import synthetic_geology_batch
@@ -203,14 +232,16 @@ from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
 from flowtrain_stochastic_interpolation_torch.ops import gemm_probes as gp
 from flowtrain_stochastic_interpolation_torch.ops import linear_attention as la
 from flowtrain_stochastic_interpolation_torch.ops import tap_conv as tc
-from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
+from flowtrain_stochastic_interpolation_torch.ops.embedding import decode, simplex_embedding
 from flowtrain_stochastic_interpolation_torch.ops.masks import make_combined_mask
 from flowtrain_stochastic_interpolation_torch.tools import ab_linear_attention as ab_la
 from flowtrain_stochastic_interpolation_torch.tools import bench_folded
 from flowtrain_stochastic_interpolation_torch.tools import bench_gemm as bg
 from flowtrain_stochastic_interpolation_torch.tools import bench_mma_shapes as bms
 from flowtrain_stochastic_interpolation_torch.tools import bench_tap_conv as btc
+from flowtrain_stochastic_interpolation_torch.solvers import solve_ode_final
 from flowtrain_stochastic_interpolation_torch.train import objectives
+from flowtrain_stochastic_interpolation_torch.train.callbacks import InferenceCallback
 from flowtrain_stochastic_interpolation_torch.train.checkpoint import find_steps
 from flowtrain_stochastic_interpolation_torch.train.loop import (
     build_model,
@@ -375,6 +406,18 @@ UPDATE_GRAD_COSINE, UPDATE_STEP_COSINE, UPDATE_AFTER_REL_TOL = 0.99, 0.9, 0.1
 # smoke samples 4 volumes with RK4 over 32 frames x 2 substeps (248 evaluations)
 APP_SAMPLES, APP_STEPS = 8, 24
 SMOKE_EVALUATIONS = (32 - 1) * 2 * 4
+# the samplers' phase: the velocity SDE at b8 over the recipe's 16 frames x 2
+# substeps (30 evaluations), eps 0.5 with the linear-decay schedule; frame
+# dispatch at b2, RK4 over 4 frames x 2 substeps (24 evaluations); the
+# conditional ensemble app at b4 (the recipe's 8 frames x 2 substeps: 14
+# evaluations by the SDE, 56 by RK4); the conditional training app for 8
+# micro-steps (2 updates at b8 x 4), then the callback's 4 samples over 32
+# frames x 2 substeps (248 evaluations)
+SDE_SAMPLES, SDE_EPSILON, SDE_EVALUATIONS = 8, 0.5, 15 * 2
+DISPATCH_BATCH, DISPATCH_FRAMES, DISPATCH_EVALUATIONS = 2, 4, 3 * 2 * 4
+ENSEMBLE_SAMPLES, ENSEMBLE_SDE_EVALUATIONS, ENSEMBLE_RK4_EVALUATIONS = 4, 7 * 2, 7 * 2 * 4
+COND_APP_STEPS, CALLBACK_SAMPLES, CALLBACK_EVALUATIONS = 8, 4, 31 * 2 * 4
+FOLDED = ("folded_context", "folded_project")
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
     "folded_project": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
@@ -1798,12 +1841,12 @@ def first_update(smi: str) -> dict:
     return card["launches"]
 
 
-def run_app(argv: list) -> tuple:
-    """``app.main(argv)`` in this process, its standard output captured and
-    echoed: ``(result, output)``."""
+def run_app(argv: list, main=app.main) -> tuple:
+    """``main(argv)`` (the unconditional app's by default) in this process, its
+    standard output captured and echoed: ``(result, output)``."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        result = app.main(argv)
+        result = main(argv)
     out = buf.getvalue()
     for line in out.splitlines():
         print(f"    | {line}", flush=True)
@@ -1957,6 +2000,229 @@ def phase_app(smi: str) -> dict:
         check({"train_loss", "grad_norm", "time_to_solve"} <= set(header),
               f"app: metrics.csv columns {header}")
     torch.cuda.empty_cache()
+    return launches, sampled
+
+
+def folded_only(counts: dict, per_kernel: int) -> bool:
+    """Whether K1 and K2 each launched ``per_kernel`` times and no other kernel ran."""
+    return all(counts[name] == (per_kernel if name in FOLDED else 0) for name in KERNELS)
+
+
+def release_model(cfg):
+    """The trained release on the card: ``(model, table)``, eval mode, bf16 compute."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return app.load_weights(cfg, str(RELEASE_DIR), device="cuda")
+
+
+def phase_adaptive(smi: str) -> dict:
+    """10a: the app's ``--adaptive`` (dopri5 at the recipe's atol = rtol = 1e-6)
+    on the trained release, 64³ b1, float32 state; then the 120-evaluation RK4
+    solve from the same state, held beside it with no threshold."""
+    cfg = unconditional_64()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_app-", dir=RELEASE_DIR.parents[2]) as root:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result, out = run_app([
+            "--preset", "flagship", "--mode", "inference", "--adaptive", "--checkpoint-path",
+            str(RELEASE_DIR), "--n-samples", "1", "--batch-size", "1", "--seed", "100",
+            "--no-save-images", "--save-trajectories", "--root-dir", root])
+        counts = read_counts()
+    sampled = result["inference"]
+    nfe, seconds = sampled.nfe, sum(sampled.seconds_per_batch)
+    final = torch.from_numpy(sampled.trajectory[-1])
+    decoded = sampled.decoded - 1
+    say("samplers", f"10a adaptive dopri5 (atol = rtol = {cfg.inference.atol:g}) through "
+        f"apps.unconditional --adaptive, trained release, 64³ b1, f32 state: nfe {nfe}, "
+        f"{seconds:.3f} s ({seconds / max(abs(nfe), 1) * 1e3:.2f} ms per evaluation, the "
+        f"controller's read-back included), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; launches {counts}; {smi}")
+    check(nfe > 0, f"10a: nfe {nfe} (negative: a segment reached max_steps)")
+    check(folded_only(counts, 6 * nfe), f"10a: launches {counts}, nfe {nfe}")
+    check(bool(torch.isfinite(final).all()), "10a: non-finite final state")
+    check(int(decoded.min()) >= -1 and int(decoded.max()) <= cfg.data.num_categories - 2,
+          f"10a: decoded categories in [{decoded.min()}, {decoded.max()}]")
+
+    model, table = release_model(cfg)
+    ic = cfg.inference
+    x0 = initial_noise(torch.Generator(device="cuda").manual_seed(100), 1, cfg.data.shape,
+                       cfg.data.embedding_dim, torch.float32, torch.device("cuda"))
+    start = time.perf_counter()
+    with torch.inference_mode():
+        ref = solve_ode_final(model, x0, t0=ic.t0, tf=ic.tf, n_frames=ic.n_frames,
+                              substeps=ic.substeps, method=ic.method)
+        ref_decoded = (decode(ref, table) - 1).cpu().numpy()
+    ref_s = time.perf_counter() - start
+    ref = ref.cpu()
+    agreement = float((ref_decoded == decoded).mean())
+    say("samplers", f"10a against RK4 16 frames x 2 substeps (120 evaluations, {ref_s:.3f} s) "
+        f"from the same x0: decode agreement {agreement:.6f}, final state relative L2 "
+        f"{rel_l2(final, ref):.4e}; {smi}")
+    del model
+    torch.cuda.empty_cache()
+    return {"samplers adaptive": counts}
+
+
+def category_fractions(decoded: np.ndarray, n_cats: int) -> list:
+    """Fractions of the voxels in each category, air (-1 after the shift) first."""
+    return [round(float(f), 4) for f in np.bincount(decoded.ravel(), minlength=n_cats)
+            / decoded.size]
+
+
+def phase_sde_and_dispatch(smi: str, rk4) -> dict:
+    """10b: ``method="sde"`` on the trained release at 64³ b8, twice from one
+    seed (the first keeping its trajectory), beside phase 9's RK4 run from the
+    same x0 (``rk4``, its ``SampleResult``). 10c: frame dispatch at b2 against the
+    plain sampler, bit for bit."""
+    cfg = unconditional_64()
+    ic = cfg.inference
+    model, table = release_model(cfg)
+    kw = dict(n_samples=SDE_SAMPLES, batch_size=SDE_SAMPLES, data_shape=cfg.data.shape,
+              embedding_dim=cfg.data.embedding_dim, seed=100, device="cuda", verbose=False,
+              t0=ic.t0, tf=ic.tf, n_frames=ic.n_frames, substeps=ic.substeps, method="sde",
+              sde_epsilon=SDE_EPSILON, sde_eps_schedule="linear_decay", with_prominence=True)
+    runs = []
+    for keep in (True, False):
+        reset_counts()
+        runs.append((sample_unconditional(model, table, keep_trajectory=keep, **kw),
+                     read_counts()))
+    (first, counts), (second, counts2) = runs
+    final = first.trajectory[-1]
+    first.trajectory = None
+    n_cats = cfg.data.num_categories
+    rk4_rate = APP_SAMPLES / sum(rk4.seconds_per_batch) * 60
+    differ = float((first.decoded != rk4.decoded).mean())
+    say("samplers", f"10b velocity SDE (eps {SDE_EPSILON} linear_decay, {ic.n_frames} frames x "
+        f"{ic.substeps} substeps), trained release, 64³ b{SDE_SAMPLES}: nfe {first.nfe}; "
+        f"{sum(first.seconds_per_batch):.3f} s with its trajectory copied out, "
+        f"{sum(second.seconds_per_batch):.3f} s without ("
+        f"{SDE_SAMPLES / sum(second.seconds_per_batch) * 60:.2f} samples/min) against phase 9's "
+        f"RK4 {sum(rk4.seconds_per_batch):.3f} s for 120 evaluations ({rk4_rate:.2f} "
+        f"samples/min); launches {counts} and {counts2}; {smi}")
+    say("samplers", f"10b category fractions (air first): SDE "
+        f"{category_fractions(first.decoded, n_cats)}, RK4 {category_fractions(rk4.decoded, n_cats)}"
+        f"; {differ:.4f} of the voxels decode otherwise than RK4's from the same x0; mean "
+        f"prominence SDE {float(first.prominence.mean()):.4f}, RK4 {float(rk4.prominence.mean()):.4f}")
+    check(first.nfe == SDE_EVALUATIONS, f"10b: nfe {first.nfe}")
+    check(folded_only(counts, 6 * SDE_EVALUATIONS) and folded_only(counts2, 6 * SDE_EVALUATIONS),
+          f"10b: launches {counts}, {counts2}")
+    check(bool(np.isfinite(final).all()), "10b: non-finite final state")
+    check(np.array_equal(first.decoded, second.decoded), "10b: one seed, two decodes")
+    check(differ > 0, "10b: the SDE decodes as RK4 does")
+
+    dispatch = dict(t0=ic.t0, tf=ic.tf, n_frames=DISPATCH_FRAMES, substeps=ic.substeps,
+                    method=ic.method, keep_trajectory=True)
+    x0 = initial_noise(torch.Generator(device="cuda").manual_seed(3), DISPATCH_BATCH,
+                       cfg.data.shape, cfg.data.embedding_dim, torch.float32,
+                       torch.device("cuda"))
+    reset_counts()
+    start = time.perf_counter()
+    framed = make_sampler(model, table, frame_dispatch=True, **dispatch)(x0)
+    framed_s = time.perf_counter() - start
+    counts_fd = read_counts()
+    start = time.perf_counter()
+    plain = make_sampler(model, table, **dispatch)(x0)
+    plain_final = plain["trajectory"][-1].cpu()
+    plain_s = time.perf_counter() - start
+    same = torch.equal(framed["trajectory"][-1], plain_final)
+    say("samplers", f"10c frame dispatch, trained release, 64³ b{DISPATCH_BATCH}, rk4 "
+        f"{DISPATCH_FRAMES} frames x {ic.substeps} substeps: nfe {framed['nfe']}, {framed_s:.3f} s "
+        f"(each frame copied to the host) against {plain_s:.3f} s plain; final state bit for bit "
+        f"{same}, decodes equal {torch.equal(framed['decoded'], plain['decoded'])}; launches "
+        f"{counts_fd}; {smi}")
+    check(framed["nfe"] == DISPATCH_EVALUATIONS, f"10c: nfe {framed['nfe']}")
+    check(folded_only(counts_fd, 6 * DISPATCH_EVALUATIONS), f"10c: launches {counts_fd}")
+    check(same and torch.equal(framed["decoded"], plain["decoded"]),
+          "10c: frame dispatch differs from the plain sampler")
+    del model, framed, plain
+    torch.cuda.empty_cache()
+    return {"samplers sde": counts, "samplers sde again": counts2, "samplers frame dispatch": counts_fd}
+
+
+def phase_conditional_apps(smi: str) -> dict:
+    """10d: ``apps.inference_experiments`` at ``conditional_64`` with seeded fresh
+    weights: one scenario, an ensemble of 4 by the SDE and again by RK4, the
+    analysis. 10e: ``apps.conditional`` for 8 micro-steps, then the repaired
+    ``InferenceCallback`` (zero observations) on the trained state."""
+    cfg = conditional_64()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_app-", dir=RELEASE_DIR.parents[2]) as root:
+        save = ["--preset", "flagship", "--save-dir", str(Path(root) / "experiments")]
+        run_app(save + ["--stage", "create-data", "--n-scenarios", "1"], main=exp_app.main)
+        for method, evaluations in (("sde", ENSEMBLE_SDE_EVALUATIONS),
+                                    ("rk4", ENSEMBLE_RK4_EVALUATIONS)):
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            out, printed = run_app(save + [
+                "--stage", "populate", "--method", method, "--n-samples", str(ENSEMBLE_SAMPLES),
+                "--batch-size", str(ENSEMBLE_SAMPLES)], main=exp_app.main)
+            counts = read_counts()
+            launches[f"conditional ensemble {method}"] = counts
+            result = out["populate"]["scenario_0"]
+            say("conditional apps", f"10d inference_experiments populate --method {method}, "
+                f"conditional_64 (seeded fresh weights), 64³ b{ENSEMBLE_SAMPLES}: nfe "
+                f"{result.nfe}, seconds per batch {[round(t, 3) for t in result.seconds_per_batch]}"
+                f" ({result.seconds_per_batch[0] / result.nfe * 1e3:.1f} ms per evaluation, the "
+                f"first batch), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"launches {counts}; {smi}")
+            check("WARNING: no checkpoint found" in printed, "10d: weights other than fresh ones")
+            check(result.nfe == evaluations and folded_only(counts, 6 * evaluations),
+                  f"10d {method}: nfe {result.nfe}, launches {counts}")
+        out, _ = run_app(save + ["--stage", "analyze"], main=exp_app.main)
+        scenario = Path(root) / "experiments" / "scenario_0"
+        written = sorted(p.name for p in scenario.iterdir())
+        want = {"true_model.npy", "boreholes.npy", "probability_tensor.npy", "entropy.npy",
+                "entropy_air_masked.npy", "most_probable.npy", "dike_probability.npy",
+                *(f"sol_{i}.npy" for i in range(ENSEMBLE_SAMPLES))}
+        sols = [np.load(scenario / f"sol_{i}.npy") for i in range(ENSEMBLE_SAMPLES)]
+        probs = np.load(scenario / "probability_tensor.npy")
+        accuracy = out["analyze"]["scenario_0"]
+        say("conditional apps", f"10d analyze: voxel accuracy of the most probable model "
+            f"{accuracy:.4f} (random weights); files {written}")
+        check(want <= set(written), f"10d: files {written}")
+        check(all(s.shape == cfg.data.shape and s.dtype == np.int8 for s in sols)
+              and probs.shape == (*cfg.data.shape, cfg.data.num_categories)
+              and np.allclose(probs.sum(-1), 1.0), "10d: solutions or maps malformed")
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        trained, printed = run_app(["--preset", "flagship", "--steps", str(COND_APP_STEPS),
+                                    "--root-dir", str(Path(root) / "train")], main=cond_app.main)
+        counts = read_counts()
+        launches["conditional app train"] = counts
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        last = trained.history[-1]
+        say("conditional apps", f"10e apps.conditional --steps {COND_APP_STEPS} at "
+            f"b{cfg.data.batch_size} x accumulation {cfg.training.accumulate_grad_batches} "
+            f"({trained.state.opt_state.updates} updates): {trained.steps_per_sec:.3f} micro-steps"
+            f"/s after the first ({trained.steps_per_sec_with_compile:.3f} with it), peak "
+            f"{peak:.2f} GiB; losses {[(h['step'], round(h['train_loss'], 4), round(h['flow_loss'], 4), round(h['reconstruct_loss'], 4)) for h in trained.history]}; "
+            f"launches {counts}; {smi}")
+        check(trained.state.step == COND_APP_STEPS and trained.state.opt_state.updates == 2,
+              f"10e: step {trained.state.step}, updates {trained.state.opt_state.updates}")
+        check(folded_only(counts, 6 * COND_APP_STEPS), f"10e: launches {counts}")
+        check(all(np.isfinite([h["train_loss"], h["flow_loss"], h["reconstruct_loss"]]).all()
+                  for h in trained.history), "10e: non-finite loss or parts")
+        check("(flow " in printed and "reconstruct " in printed, "10e: no closing line")
+
+        callback = InferenceCallback(cfg, build_model(cfg, device="cuda"),
+                                     str(Path(root) / "callback"), n_samples=CALLBACK_SAMPLES)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            sampled = callback.run_inference(trained.state, tag="chip")
+        counts = read_counts()
+        launches["conditional callback"] = counts
+        say("conditional apps", f"10e InferenceCallback.run_inference on the trained "
+            f"conditional_64 state (EMA weights, zero ATb): {CALLBACK_SAMPLES} samples, "
+            f"{callback.n_frames} frames x {cfg.inference.substeps} substeps rk4 "
+            f"({CALLBACK_EVALUATIONS} evaluations at b{CALLBACK_SAMPLES}): time_to_solve "
+            f"{sampled['time_to_solve']:.3f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB; launches {counts}; {smi}")
+        check(folded_only(counts, 6 * CALLBACK_EVALUATIONS), f"10e callback: launches {counts}")
+        check(sampled["decoded"].shape == (CALLBACK_SAMPLES, *cfg.data.shape)
+              and bool(np.isfinite(sampled["prominence"]).all()), "10e callback: bad samples")
+        del trained, callback
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2009,7 +2275,11 @@ def main() -> int:
         "fa16", flagship_train_config(FA16),
         {"flash_attention": 2, "folded_context": 4, "folded_project": 4},
         profile=True)["launches"]
-    launches.update(phase_app(smi))
+    app_launches, rk4 = phase_app(smi)
+    launches.update(app_launches)
+    launches.update(phase_adaptive(smi))
+    launches.update(phase_sde_and_dispatch(smi, rk4))
+    launches.update(phase_conditional_apps(smi))
 
     kernels = []
     for name in KERNELS:

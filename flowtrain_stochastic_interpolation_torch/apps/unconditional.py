@@ -15,9 +15,10 @@ both``, ``--n-samples``, ``--batch-size``, ``--seed``, ``--steps``,
 ``--checkpoint-path`` (a release directory such as
 ``artifacts/weights/uncond_demo_64``, or a checkpoint directory of this
 port), then the run's own checkpoint directory, then a seeded fresh init
-with a warning. Not ported: the Lightning ``.ckpt`` conversion and the
-download of the published weights, and ``--adaptive`` (dopri5); asking for
-them raises. Importing this module runs nothing.
+with a warning. ``--adaptive`` samples with dopri5 at the config's ``atol``
+and ``rtol``. Not ported: the Lightning ``.ckpt`` conversion and the
+download of the published weights; asking for a ``.ckpt`` raises. Importing
+this module runs nothing.
 """
 
 from __future__ import annotations
@@ -62,31 +63,31 @@ def setup_directories(root_dir: str, name: str) -> dict:
     return dirs
 
 
-def load_variables(config, checkpoint_path: Optional[str], dirs: dict, use_ema: bool = True,
-                   device=None):
-    """``(model, table)``: the model in eval mode holding weights resolved from
-    a release directory | a checkpoint directory of the port | a fresh init."""
+def load_weights(config, path: Optional[str], use_ema: bool = True, device=None):
+    """``(model, table)``: the model in eval mode holding the weights of ``path``,
+    a release directory or a checkpoint directory of the port, or a seeded fresh
+    init with a warning where ``path`` is None or holds no checkpoint. A
+    Lightning ``.ckpt`` raises (its conversion is not ported)."""
     dev = resolve_device(device)
-    if checkpoint_path and checkpoint_path.endswith(".ckpt"):
+    if path and path.endswith(".ckpt"):
         raise NotImplementedError(
             "the Lightning .ckpt conversion is not ported (ROADMAP Queue 1 item 14); "
             "pass a release directory or a checkpoint directory of this port"
         )
-    ckpt_dir = checkpoint_path or dirs["checkpoint_dir"]
-    if is_release_weights_dir(ckpt_dir):
-        tree, _, meta = load_release_weights(ckpt_dir)
+    if path and is_release_weights_dir(path):
+        tree, _, meta = load_release_weights(path)
         model = build_model(config, device=dev)
         model.load_state_dict(state_dict_from_release(tree, model, use_ema=use_ema))
         table = torch.from_numpy(
             simplex_embedding(config.data.num_categories, config.data.embedding_dim)).to(dev)
-        print(f"loaded release weights step {meta.get('step')} from {ckpt_dir}")
+        print(f"loaded release weights step {meta.get('step')} from {path}")
         return model.eval(), table
 
-    mgr = CheckpointManager(ckpt_dir, None)
     model, _, state = init_train_state(config, device=dev)
-    if mgr.latest_step() is not None:
+    mgr = CheckpointManager(path, None) if path else None
+    if mgr is not None and mgr.latest_step() is not None:
         state = mgr.restore(state)
-        print(f"loaded checkpoint step {mgr.latest_step()} from {ckpt_dir}")
+        print(f"loaded checkpoint step {mgr.latest_step()} from {path}")
         if use_ema and state.ema_params is not None:
             model.load_state_dict(state.ema_params)
     else:
@@ -94,10 +95,14 @@ def load_variables(config, checkpoint_path: Optional[str], dirs: dict, use_ema: 
     return model.eval(), state.constants["embedding"]
 
 
+def load_variables(config, checkpoint_path: Optional[str], dirs: dict, use_ema: bool = True,
+                   device=None):
+    """``(model, table)`` from ``--checkpoint-path``, else the run's own checkpoint
+    directory (:func:`load_weights`)."""
+    return load_weights(config, checkpoint_path or dirs["checkpoint_dir"], use_ema, device)
+
+
 def run_inference(args, config, dirs) -> SampleResult:
-    if args.adaptive:
-        raise NotImplementedError("the adaptive dopri5 sampler is not ported "
-                                  "(ROADMAP Queue 1 item 6)")
     dev = resolve_device(args.infer_device)
     model, table = load_variables(config, args.checkpoint_path, dirs, device=dev)
     ic = config.inference
@@ -111,6 +116,7 @@ def run_inference(args, config, dirs) -> SampleResult:
         device=dev,
         t0=ic.t0, tf=ic.tf, n_frames=ic.n_frames,
         substeps=ic.substeps, method=ic.method,
+        adaptive=args.adaptive, atol=ic.atol, rtol=ic.rtol,
         keep_trajectory=args.save_trajectories, with_prominence=True,
     )
     for i in range(result.decoded.shape[0]):
@@ -151,7 +157,7 @@ def parse_arguments(argv: Optional[Sequence[str]] = None):
     p.add_argument("--checkpoint-path", type=str, default=None,
                    help="release-weights directory or checkpoint directory of this port")
     p.add_argument("--adaptive", action="store_true",
-                   help="the adaptive dopri5 sampler (not ported: raises)")
+                   help="sample with adaptive dopri5 at the config's atol / rtol")
     p.add_argument("--save-images", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--save-trajectories", action=argparse.BooleanOptionalAction, default=False)
     p.add_argument("--root-dir", type=str, default=os.path.dirname(os.path.abspath(__file__)))

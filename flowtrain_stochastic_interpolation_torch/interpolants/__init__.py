@@ -1,11 +1,20 @@
 """Stochastic-interpolant schedules and the flow objective.
 
-Port of the part of ``flowtrain_stochastic_interpolation_tpu/interpolants``
-that training runs: :func:`bcast_time`, the :class:`Interpolant` base (the
-alpha/beta/gamma schedule and the objectives built from it) and
-:class:`LinearInterpolant` (alpha = 1 - t, beta = t, gamma = sqrt(a t (1-t)),
-zero when one-sided). The trigonometric, encoder-decoder, SBDM and mirror
-interpolants and ``StochasticInterpolator`` are not ported yet.
+Port of ``flowtrain_stochastic_interpolation_tpu/interpolants``:
+:func:`bcast_time`, the :class:`Interpolant` base (the alpha/beta/gamma
+schedule and the objectives built from it), the five interpolants of
+Albergo, Boffi & Vanden-Eijnden (arXiv:2303.08797, section 4) and the
+:class:`StochasticInterpolator` wrapper:
+
+==================  ===========================  ====================================
+name                alpha / beta                 gamma
+==================  ===========================  ====================================
+LinearInterpolant   1-t / t                      sqrt(a t (1-t)), 0 when one-sided
+TrigInterpolant     cos(pi t/2) / sin(pi t/2)    sqrt(a t (1-t)), 0 when one-sided
+EncDecInterpolant   cos^2(pi t) split at t=1/2   sin^2(pi t)
+SBDMInterpolant     sqrt(1-t^2) / t              0 (one-sided)
+MirrorInterpolant   0 / 1                        sqrt(a t (1-t))
+==================  ===========================  ====================================
 
 Everything is a pure function of ``(t, x0, x1[, z])``; ``t`` is a scalar or a
 ``[N]`` vector broadcast against the leading axis of the data.
@@ -14,6 +23,7 @@ Everything is a pure function of ``(t, x0, x1[, z])``; ``t`` is a scalar or a
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -122,6 +132,14 @@ def _as_time(t) -> torch.Tensor:
     return t if t.is_floating_point() else t.float()
 
 
+def _gamma_sqrt(t: torch.Tensor, a: float) -> torch.Tensor:
+    return torch.sqrt(a * t * (1.0 - t))
+
+
+def _gamma_sqrt_dot(t: torch.Tensor, a: float) -> torch.Tensor:
+    return 0.5 * a * (1.0 - 2.0 * t) / torch.sqrt(a * t * (1.0 - t))
+
+
 @dataclasses.dataclass(frozen=True)
 class LinearInterpolant(Interpolant):
     """alpha = 1 - t, beta = t, gamma = sqrt(a t (1 - t))."""
@@ -138,7 +156,7 @@ class LinearInterpolant(Interpolant):
         t = _as_time(t)
         if self.one_sided:
             return torch.zeros_like(t)
-        return torch.sqrt(self.gamma_a * t * (1.0 - t))
+        return _gamma_sqrt(t, self.gamma_a)
 
     def alpha_dot(self, t):
         return -torch.ones_like(_as_time(t))
@@ -150,4 +168,155 @@ class LinearInterpolant(Interpolant):
         t = _as_time(t)
         if self.one_sided:
             return torch.zeros_like(t)
-        return 0.5 * self.gamma_a * (1.0 - 2.0 * t) / torch.sqrt(self.gamma_a * t * (1.0 - t))
+        return _gamma_sqrt_dot(t, self.gamma_a)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrigInterpolant(Interpolant):
+    """alpha = cos(pi t / 2), beta = sin(pi t / 2), gamma as the linear one's."""
+
+    gamma_a: float = 2.0
+
+    def alpha(self, t):
+        return torch.cos(math.pi * _as_time(t) / 2.0)
+
+    def beta(self, t):
+        return torch.sin(math.pi * _as_time(t) / 2.0)
+
+    def gamma(self, t):
+        t = _as_time(t)
+        if self.one_sided:
+            return torch.zeros_like(t)
+        return _gamma_sqrt(t, self.gamma_a)
+
+    def alpha_dot(self, t):
+        return -math.pi / 2.0 * torch.sin(math.pi * _as_time(t) / 2.0)
+
+    def beta_dot(self, t):
+        return math.pi / 2.0 * torch.cos(math.pi * _as_time(t) / 2.0)
+
+    def gamma_dot(self, t):
+        t = _as_time(t)
+        if self.one_sided:
+            return torch.zeros_like(t)
+        return _gamma_sqrt_dot(t, self.gamma_a)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecInterpolant(Interpolant):
+    """Encode-decode: alpha and beta are cos^2(pi t), split at t = 1/2;
+    gamma = sin^2(pi t)."""
+
+    def alpha(self, t):
+        t = _as_time(t)
+        return torch.where(t < 0.5, torch.cos(math.pi * t) ** 2, torch.zeros_like(t))
+
+    def beta(self, t):
+        t = _as_time(t)
+        return torch.where(t > 0.5, torch.cos(math.pi * t) ** 2, torch.zeros_like(t))
+
+    def gamma(self, t):
+        return torch.sin(math.pi * _as_time(t)) ** 2
+
+    def alpha_dot(self, t):
+        t = _as_time(t)
+        return torch.where(t < 0.5, -math.pi * torch.sin(2.0 * math.pi * t), torch.zeros_like(t))
+
+    def beta_dot(self, t):
+        t = _as_time(t)
+        return torch.where(t > 0.5, -math.pi * torch.sin(2.0 * math.pi * t), torch.zeros_like(t))
+
+    def gamma_dot(self, t):
+        return math.pi * torch.sin(2.0 * math.pi * _as_time(t))
+
+
+@dataclasses.dataclass(frozen=True)
+class SBDMInterpolant(Interpolant):
+    """Score-based diffusion: alpha = sqrt(1 - t^2), beta = t; one-sided."""
+
+    one_sided: bool = True
+
+    def alpha(self, t):
+        return torch.sqrt(1.0 - _as_time(t) ** 2)
+
+    def beta(self, t):
+        return _as_time(t) * 1.0
+
+    def gamma(self, t):
+        return torch.zeros_like(_as_time(t))
+
+    def alpha_dot(self, t):
+        t = _as_time(t)
+        return -t / torch.sqrt(1.0 - t ** 2)
+
+    def beta_dot(self, t):
+        return torch.ones_like(_as_time(t))
+
+    def gamma_dot(self, t):
+        return torch.zeros_like(_as_time(t))
+
+
+@dataclasses.dataclass(frozen=True)
+class MirrorInterpolant(Interpolant):
+    """Mirror: alpha = 0, beta = 1, gamma = sqrt(a t (1 - t))."""
+
+    gamma_a: float = 2.0
+
+    def alpha(self, t):
+        return torch.zeros_like(_as_time(t))
+
+    def beta(self, t):
+        return torch.ones_like(_as_time(t))
+
+    def gamma(self, t):
+        return _gamma_sqrt(_as_time(t), self.gamma_a)
+
+    def alpha_dot(self, t):
+        return torch.zeros_like(_as_time(t))
+
+    def beta_dot(self, t):
+        return torch.zeros_like(_as_time(t))
+
+    def gamma_dot(self, t):
+        return _gamma_sqrt_dot(_as_time(t), self.gamma_a)
+
+
+class StochasticInterpolator:
+    """The reference's class API over an :class:`Interpolant`, whose methods
+    hold the math."""
+
+    def __init__(self, interpolant: Interpolant):
+        self.interp = interpolant
+
+    def __repr__(self) -> str:
+        return f"StochasticInterpolator({self.interp})"
+
+    def flow_objective(self, t, x0, x1, z=None):
+        return self.interp.flow_objective(t, x0, x1, z)
+
+    def denoising_objective(self, t, x0, x1, z=None):
+        return self.interp.denoising_objective(t, x0, x1, z)
+
+    def get_XT(self, t, x0, x1, z=None):
+        return self.interp.get_xt(t, x0, x1, z)
+
+    def get_BT(self, t, x0, x1, z=None):
+        return self.interp.get_bt(t, x0, x1, z)
+
+    def get_ST(self, t, z):
+        return self.interp.get_st(t, z)
+
+    def get_VT(self, t, x0, x1):
+        return self.interp.get_vt(t, x0, x1)
+
+    def get_BT_from_score(self, t, vt, st):
+        return self.interp.get_bt_from_score(t, vt, st)
+
+
+INTERPOLANTS = {
+    "linear": LinearInterpolant,
+    "trig": TrigInterpolant,
+    "encdec": EncDecInterpolant,
+    "sbdm": SBDMInterpolant,
+    "mirror": MirrorInterpolant,
+}

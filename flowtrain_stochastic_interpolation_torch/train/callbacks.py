@@ -3,7 +3,8 @@
 Port of ``flowtrain_stochastic_interpolation_tpu/train/callbacks.py``: every
 ``every_n_epochs`` epochs (at the epoch boundary), and once before training
 through the loop's pre-train smoke, sample ``n_samples`` volumes from seeded
-noise with the state's EMA weights (its params when EMA is off), decode them,
+noise with the state's EMA weights (its params when EMA is off), decode them
+(a conditional model samples with all-zero observations, as in JAX),
 compute the prominence (top-1 minus top-2 softmax margin), save slice grids
 and heatmaps, and record ``time_to_solve``.
 
@@ -92,17 +93,20 @@ class InferenceCallback:
         params = state.with_ema_applied().params if use_ema else state.params
         table = state.constants["embedding"]
         device = table.device
+        conditional = cfg.model.conditional
         sampler = make_sampler(
-            self.model, table, t0=cfg.inference.t0, tf=self.tf, n_frames=self.n_frames,
-            substeps=cfg.inference.substeps, method=cfg.inference.method, with_prominence=True,
+            self.model, table, conditional=conditional, t0=cfg.inference.t0, tf=self.tf,
+            n_frames=self.n_frames, substeps=cfg.inference.substeps,
+            method=cfg.inference.method, with_prominence=True,
         )
         gen = torch.Generator(device=device)
         gen.manual_seed(self.seed)
         x0 = initial_noise(gen, self.n_samples, cfg.data.shape, cfg.data.embedding_dim,
                            torch.float32, device)
+        inputs = (x0, torch.zeros_like(x0)) if conditional else (x0,)
         t_start = time.perf_counter()
         with weights_applied(self.model, params):
-            out = sampler(x0)
+            out = sampler(*inputs)
             decoded = out["decoded"].cpu().numpy() - 1  # waits for the device
         time_to_solve = time.perf_counter() - t_start
         prom = out["prominence"].cpu().numpy()

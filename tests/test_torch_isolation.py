@@ -49,6 +49,17 @@ from {PACKAGE}.train.callbacks import InferenceCallback
 from {PACKAGE}.train.checkpoint import CheckpointManager
 from {PACKAGE}.train.loop import train
 from {PACKAGE}.utils import logging, msgpack_tree, plotting
+from {PACKAGE}.apps import conditional, inference_experiments  # the twelfth slice
+from {PACKAGE}.interpolants import (
+    EncDecInterpolant, MirrorInterpolant, SBDMInterpolant, StochasticInterpolator, TrigInterpolant,
+)
+from {PACKAGE}.solvers import (
+    ODEFlowSolver, denoiser_to_velocity, eps_schedule, make_frame_advancer, ode_sol_rk4,
+    solve_denoising_ode, solve_denoising_sde, solve_ode_adaptive, solve_velocity_sde,
+    velocity_to_denoiser,
+)
+from {PACKAGE}.solvers.dopri5 import dopri5_integrate
+from {PACKAGE}.inference import make_sampler
 tree, cfg, meta = load_release_weights("{RELEASE_WEIGHTS.rsplit('/', 1)[0]}")
 leaves = lambda t: sum(leaves(v) if isinstance(v, dict) else 1 for v in t.values())
 assert leaves(tree["params"]) == 299 and meta["step"] == 3000 and cfg.model == unconditional_64().model
@@ -62,6 +73,13 @@ batch = torch.full((1, 8, 8, 8), 3)
 mask = masks.make_combined_mask(torch.Generator().manual_seed(0), batch)
 atb = build_atb(batch[0], mask[0], torch.eye(15))
 assert ensemble.vote_probabilities(batch, 15).shape == (8, 8, 8, 15)
+model = UNet3DCond.from_config(tiny_test(conditional=True).model, device="cpu")
+for kw in ({{"method": "heun"}}, {{"frame_dispatch": True}}, {{"method": "sde"}}):
+    sampler = make_sampler(model, torch.eye(15), conditional=True, n_frames=2, substeps=1, **kw)
+    gen = {{"generator": torch.Generator()}} if kw.get("method") == "sde" else {{}}
+    assert sampler(x, x, **gen)["decoded"].shape == (1, 8, 8, 8)
+traj, nfe = solve_ode_adaptive(lambda y, t: -y, torch.ones(1, 2), n_frames=3)
+assert nfe > 0 and traj.shape == (3, 1, 2)
 assert not any(n.split(".")[0] in {POISONED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), "modules")
 """
@@ -77,20 +95,25 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = _run([sys.executable, "-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     # every module of the port, the training slice's (interpolants, data, train), the
-    # conditional slice's (models.unet_cond, ops.masks, ops.ensemble) and the app's
-    # (apps, utils, train.checkpoint, train.callbacks) too
-    assert int(proc.stdout.split()[0]) >= 37, proc.stdout
+    # conditional slice's (models.unet_cond, ops.masks, ops.ensemble), the app's
+    # (apps, utils, train.checkpoint, train.callbacks) and the samplers' slice's
+    # (solvers.dopri5, apps.conditional, apps.inference_experiments) too
+    assert int(proc.stdout.split()[0]) >= 40, proc.stdout
 
 
 def test_importing_the_app_runs_nothing(tmp_path):
     apps = ROOT / PACKAGE / "apps"
     before = sorted(p.name for p in apps.iterdir())
+    names = ("unconditional", "conditional", "inference_experiments")
+    code = "; ".join(f"import {PACKAGE}.apps.{n} as {n}; print({n}.main)" for n in names)
     proc = subprocess.run(
-        [sys.executable, "-c", f"import {PACKAGE}.apps.unconditional as app; print(app.main)"],
+        [sys.executable, "-c", code],
         cwd=tmp_path, env=dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT)),
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.startswith("<function main") and proc.stderr == ""
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 3 and all(line.startswith("<function main") for line in lines)
+    assert proc.stderr == ""
     assert sorted(p.name for p in apps.iterdir()) == before and not any(tmp_path.iterdir())
 
 

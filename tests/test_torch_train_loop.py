@@ -56,6 +56,17 @@ ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs several workers
+    at once, and a full thread pool in each oversubscribes the cores (small
+    operations then wait on spinning threads, a hundredfold slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ---------------------------------------------------------------------------
 # Checkpoint retention against orbax
 # ---------------------------------------------------------------------------
@@ -377,9 +388,9 @@ def test_app_raises_for_what_is_not_ported(tmp_path):
     dirs = port_app.setup_directories(str(tmp_path), "tiny-smoke")
     with pytest.raises(NotImplementedError, match="ckpt"):
         port_app.load_variables(port_config.tiny_test(), "weights.ckpt", dirs, device="cpu")
-    with pytest.raises(NotImplementedError, match="dopri5"):
-        port_app.main(["--preset", "tiny", "--mode", "inference", "--adaptive",
-                       "--infer-device", "cpu", "--root-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="ckpt"):
+        port_app.main(["--preset", "tiny", "--mode", "inference", "--checkpoint-path",
+                       "weights.ckpt", "--infer-device", "cpu", "--root-dir", str(tmp_path)])
     with pytest.raises(SystemExit):
         port_app.parse_arguments(["--train-devices", "0,1"])
     args = port_app.parse_arguments([])
