@@ -184,8 +184,40 @@ Phases, each printed on one flushed line with the seconds since start:
       evaluations, K1 and K2 6 times each); micro-steps/s, peak memory and
       ``time_to_solve``.
 
+11. the constructor options, reference checkpoints, host-side data and 128³,
+   the thirteenth slice's main paths:
+   a. the flagship with RandomFourier time (``time_learned_emb=False``: frozen
+      features as buffers) written as a reference Lightning ``.ckpt`` (seeded
+      weights, an EMA shadow of other seeded weights) by
+      ``tests/torch_lightning_layout.py``, loaded by its path; then
+      ``apps.unconditional.main --mode inference --checkpoint-path`` on it at
+      b8 x 120 evaluations (K1 and K2 720 times each); ``load_weights`` on the
+      file holds the EMA shadow's weights, and its 16³ bf16 forward is held
+      against f32 on the CPU; the same for a ``conditional_64`` ``.ckpt``, then
+      one ``sample_conditional`` batch of 4 (8 evaluations);
+   b. one b2 64³ bf16 forward each of the flagship with sinusoidal time, with
+      self-conditioning (a non-zero ``x_self_cond``, which must change the
+      output) and with ``attn_enabled=False`` (no K1 or K2), against f32 on the
+      CPU;
+   c. ``get_dataset(source="geogen")`` without GeoGen: the warning, then
+      synthetic batches on the card; the native generator built by ``g++``
+      (a failed build fails the phase) and its b4 x 64³ batches/s alone; 10
+      flagship micro-steps at b4 x 2 through ``train.loop.train`` on it (host
+      batches through ``prefetch``, pinned, copied without blocking) and on
+      the synthetic source, micro-steps/s side by side;
+   d. 128³: K1 and K2 at b1 x 2,097,152 tokens against their plain versions
+      (each twice, identical) and timed beside the bound; the chunked folded
+      backward at 2^21 rows against the one-shot ``closed_form_bf16`` called
+      directly; flagship micro-steps at 128³ b1 x accumulation 2, 2 warm-up and
+      6 timed, plain (K1 and K2 8 per micro-step), with ``remat_blocks`` and
+      with ``remat`` "nothing" plus the bf16 objective (16 each: the forward
+      and its recompute), with ms and peak memory; the gradients of a
+      ``remat_blocks`` step against the plain step's from the same weights,
+      batch and dropout generator (beside two plain steps' difference); one
+      128³ b1 sample from the trained release, RK4 16 frames x 2 substeps.
+
 The launch counts are set to 0 just before each main-path run (phases 4a-4c,
-5, 5b, 7, 8, 9 and 10) and read just after it. Then one JSON line per kernel (``{"kernels":
+5, 5b, 7, 8, 9, 10 and 11) and read just after it. Then one JSON line per kernel (``{"kernels":
 [...]}``), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
 """
@@ -195,13 +227,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib.util
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -213,7 +248,12 @@ from flowtrain_stochastic_interpolation_torch.apps import conditional as cond_ap
 from flowtrain_stochastic_interpolation_torch.apps import inference_experiments as exp_app
 from flowtrain_stochastic_interpolation_torch.apps import unconditional as app
 from flowtrain_stochastic_interpolation_torch.config import conditional_64, unconditional_64
-from flowtrain_stochastic_interpolation_torch.data.synthetic import synthetic_geology_batch
+from flowtrain_stochastic_interpolation_torch.data import geogen as geogen_data
+from flowtrain_stochastic_interpolation_torch.data import native as native_data
+from flowtrain_stochastic_interpolation_torch.data.synthetic import (
+    SyntheticGeoDataset,
+    synthetic_geology_batch,
+)
 from flowtrain_stochastic_interpolation_torch.inference import (
     build_atb,
     initial_noise,
@@ -224,7 +264,9 @@ from flowtrain_stochastic_interpolation_torch.inference import (
 from flowtrain_stochastic_interpolation_torch.models.attention import Attention, LinearAttention
 from flowtrain_stochastic_interpolation_torch.models.persistence import (
     load_release_weights,
+    params_from_jax,
     state_dict_from_release,
+    variables_to_jax,
 )
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build, ensemble
@@ -240,7 +282,9 @@ from flowtrain_stochastic_interpolation_torch.tools import bench_gemm as bg
 from flowtrain_stochastic_interpolation_torch.tools import bench_mma_shapes as bms
 from flowtrain_stochastic_interpolation_torch.tools import bench_tap_conv as btc
 from flowtrain_stochastic_interpolation_torch.solvers import solve_ode_final
+from flowtrain_stochastic_interpolation_torch.train import loop as train_loop
 from flowtrain_stochastic_interpolation_torch.train import objectives
+from flowtrain_stochastic_interpolation_torch.train import steps as train_steps
 from flowtrain_stochastic_interpolation_torch.train.callbacks import InferenceCallback
 from flowtrain_stochastic_interpolation_torch.train.checkpoint import find_steps
 from flowtrain_stochastic_interpolation_torch.train.loop import (
@@ -417,6 +461,25 @@ SDE_SAMPLES, SDE_EPSILON, SDE_EVALUATIONS = 8, 0.5, 15 * 2
 DISPATCH_BATCH, DISPATCH_FRAMES, DISPATCH_EVALUATIONS = 2, 4, 3 * 2 * 4
 ENSEMBLE_SAMPLES, ENSEMBLE_SDE_EVALUATIONS, ENSEMBLE_RK4_EVALUATIONS = 4, 7 * 2, 7 * 2 * 4
 COND_APP_STEPS, CALLBACK_SAMPLES, CALLBACK_EVALUATIONS = 8, 4, 31 * 2 * 4
+# phase 11 (the thirteenth slice). 11a: reference-layout .ckpt files, written by the
+# test helper that this script loads by its path, the flagship with RandomFourier time
+# through the app (b8 x 120 evaluations) and conditional_64 through load_weights and one
+# sample_conditional batch of 4 (8 evaluations); 11b: one b2 64³ bf16 forward per
+# constructor option against f32 on the CPU, at times exact in bf16; 11c: 10 flagship
+# micro-steps at b4 x 2 through the train loop per data source, and the native
+# generator's batches alone; 11d: 128³ (2^21 tokens at the top stage) at b1
+LAYOUT_HELPER = Path(__file__).resolve().parent / "tests" / "torch_lightning_layout.py"
+OPTION_TIMES = (0.25, 0.625)
+HOST_STEPS, NATIVE_BATCHES = 10, 8
+SIDE_128, TOKENS_128 = 128, 128**3
+# K1 and K2 launches per forward at 128³: the linear attention at 128³, 64³, 32³ and
+# 16³, down and up (8³ has 512 tokens, under the folded path's 4096)
+PER_FORWARD_128 = 8
+# the remat_blocks step's gradients against the plain step's, relative L2 over all
+# parameters: the recompute repeats the forward, but cuDNN's and the trilinear
+# resize's backwards sum with atomics in no fixed order, so two plain steps already
+# differ (printed beside it); both stay within the bf16 backward's tolerance
+REMAT_GRAD_REL_TOL = BACKWARD_REL_TOL
 FOLDED = ("folded_context", "folded_project")
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
@@ -2226,6 +2289,364 @@ def phase_conditional_apps(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the constructor options, reference .ckpt files, host-side data and 128³
+# (the thirteenth slice)
+# ---------------------------------------------------------------------------
+def lightning_layout():
+    """The test helper that writes reference-layout ``.ckpt`` files (torch and
+    numpy only), loaded by its path."""
+    spec = importlib.util.spec_from_file_location("torch_lightning_layout", LAYOUT_HELPER)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def with_model(cfg, **options):
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **options))
+
+
+def write_reference_ckpt(layout, path: Path, cfg, seed: int) -> dict:
+    """A reference-layout checkpoint of ``cfg``'s model with seeded weights and an
+    EMA shadow of other seeded weights; returns the flax trees written."""
+    variables = variables_to_jax(init_model_variables(cfg, seed=seed, device="cuda"))
+    ema = variables_to_jax(init_model_variables(cfg, seed=seed + 1, device="cuda"))["params"]
+    hp = dataclasses.asdict(cfg.model)
+    hp.update(data_channels=cfg.data.embedding_dim, dim_mults=list(cfg.model.dim_mults))
+    table = simplex_embedding(cfg.data.num_categories, cfg.data.embedding_dim)
+    start = time.perf_counter()
+    layout.write_checkpoint(str(path), variables, table, hp,
+                            conditional=cfg.model.conditional, ema_params=ema)
+    time_embedding = "LearnedFourier" if cfg.model.time_learned_emb else "RandomFourier"
+    say("ckpt", f"{cfg.name} ({time_embedding}"
+        f" time) written in the reference's layout: {path.stat().st_size} bytes in "
+        f"{time.perf_counter() - start:.2f} s")
+    return {"variables": variables, "ema": ema}
+
+
+def check_ema_applied(label: str, model, written: dict) -> None:
+    """The model holds the EMA shadow's weights (and the written constants), not
+    the checkpoint's own weights."""
+    ema = params_from_jax({"params": written["ema"],
+                           "constants": written["variables"].get("constants", {})})
+    own = params_from_jax(written["variables"])
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    same = all(torch.equal(state[k], ema[k]) for k in ema) and set(state) == set(ema)
+    moved = sum(not torch.equal(state[k], own[k]) for k in own)
+    say("ckpt", f"{label}: all {len(ema)} tensors the EMA shadow's (constants the written "
+        f"ones) {same}; {moved} differ from the checkpoint's own weights; buffers "
+        f"{sorted(dict(model.named_buffers()))}")
+    check(same and moved > 0, f"{label}: the EMA weights were not the ones applied")
+
+
+def phase_ckpt(smi: str) -> dict:
+    """11a: a reference ``.ckpt`` of the flagship with RandomFourier time through
+    the app's inference, and one of ``conditional_64`` through ``load_weights``
+    and ``sample_conditional``."""
+    layout = lightning_layout()
+    launches = {}
+    cfg = with_model(unconditional_64(), time_learned_emb=False)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_app-", dir=RELEASE_DIR.parents[2]) as root:
+        path = Path(root) / "unconditional.ckpt"
+        written = write_reference_ckpt(layout, path, cfg, seed=11)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result, out = run_app([
+            "--preset", "flagship", "--mode", "inference", "--checkpoint-path", str(path),
+            "--n-samples", str(APP_SAMPLES), "--batch-size", str(APP_SAMPLES), "--seed", "100",
+            "--no-save-images", "--root-dir", root])
+        counts = read_counts()
+        launches["ckpt app inference"] = counts
+        sampled = result["inference"]
+        seconds = sum(sampled.seconds_per_batch)
+        check("loaded Lightning checkpoint" in out and "EMA True" in out
+              and "'time_learned_emb': False" in out, "11a: the app did not load the .ckpt")
+        check(sampled.nfe == 120 and folded_only(counts, 6 * sampled.nfe),
+              f"11a app: nfe {sampled.nfe}, launches {counts}")
+        check(sampled.decoded.shape == (APP_SAMPLES, *cfg.data.shape)
+              and int(sampled.decoded.min()) >= 0
+              and int(sampled.decoded.max()) <= cfg.data.num_categories - 1,
+              "11a app: decoded volumes malformed")
+        say("ckpt", f"apps.unconditional --mode inference --checkpoint-path unconditional.ckpt: "
+            f"{APP_SAMPLES} samples at 64³ b{APP_SAMPLES}, nfe {sampled.nfe}: {seconds:.3f} s, "
+            f"{APP_SAMPLES / seconds * 60:.2f} samples/min, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}; {smi}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, table = app.load_weights(unconditional_64(), str(path), device="cuda")
+        check_ema_applied("unconditional .ckpt", model, written)
+        reference_check("ckpt flagship (RandomFourier)", model, cfg, 16,
+                        {"folded_context": 2, "folded_project": 2}, phase="ckpt")
+        del model, result, sampled
+        torch.cuda.empty_cache()
+
+        cond = conditional_64()
+        path = Path(root) / "conditional.ckpt"
+        written = write_reference_ckpt(layout, path, cond, seed=21)
+        with contextlib.redirect_stdout(io.StringIO()):
+            model, table = app.load_weights(cond, str(path), device="cuda")
+        check(type(model).__name__ == "UNet3DCond", f"11a: {type(model).__name__} from the .ckpt")
+        check_ema_applied("conditional .ckpt", model, written)
+        reference_check("ckpt conditional_64", model, cond, 16,
+                        {"folded_context": 2, "folded_project": 2}, phase="ckpt")
+        atb = observations(torch.Generator(device="cuda").manual_seed(3), cond, COND_SIDE)
+        reset_counts()
+        result = sample_conditional(
+            model, table, atb, n_samples=COND_BATCH, batch_size=COND_BATCH, seed=0,
+            device="cuda", state_dtype=torch.bfloat16, verbose=False, t0=cond.inference.t0,
+            tf=cond.inference.tf, n_frames=COND_FRAMES, substeps=1, method="rk4")
+        counts = read_counts()
+        launches["ckpt conditional"] = counts
+        check(result.nfe == (COND_FRAMES - 1) * 4 and folded_only(counts, 6 * result.nfe)
+              and result.decoded.shape == (COND_BATCH, *[COND_SIDE] * 3),
+              f"11a conditional: nfe {result.nfe}, launches {counts}")
+        say("ckpt", f"sample_conditional from conditional.ckpt (EMA), {COND_SIDE}³ b{COND_BATCH}, "
+            f"rk4 nfe {result.nfe}: {result.seconds_per_batch[0]:.3f} s (the first batch); "
+            f"launches {counts}")
+        del model, result
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_options() -> dict:
+    """11b: one b2 64³ bf16 forward on the card per constructor option of the
+    flagship, against the same weights in f32 on the CPU."""
+    launches = {}
+    data = unconditional_64().data
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, *data.shape, data.embedding_dim, generator=gen)
+    x_sc = torch.randn(x.shape, generator=gen)
+    t = torch.tensor(OPTION_TIMES)
+    options = (("sinusoidal time", dict(time_sin_pos=True), 6),
+               ("self-conditioning", dict(self_condition=True), 6),
+               ("attn_enabled=False", dict(attn_enabled=False), 0))
+    for label, opts, per_forward in options:
+        cfg = with_model(unconditional_64(), **opts)
+        model = seeded_model(cfg, seed=31)
+        cpu = build_model(with_model(cfg, dtype="float32"), device="cpu").eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        extra = {"x_self_cond": x_sc} if opts.get("self_condition") else {}
+        start = time.perf_counter()
+        with torch.inference_mode():
+            ref = cpu(x, t, **extra)
+        cpu_s = time.perf_counter() - start
+        reset_counts()
+        with torch.inference_mode():
+            got = model(x.cuda().bfloat16(), t.cuda(),
+                        **{k: v.cuda().bfloat16() for k, v in extra.items()}).cpu()
+        counts = read_counts()
+        launches[f"options {label}"] = counts
+        rel = rel_l2(got, ref)
+        note = ("; no attention module, so no K1 or K2" if per_forward == 0 else "")
+        say("options", f"{label}: b2 64³ forward on the card (bf16) vs f32 on the CPU "
+            f"({cpu_s:.1f} s): relative L2 {rel:.3e} (tolerance {FORWARD_REL_TOL:g}); "
+            f"launches {counts}{note}")
+        check(bool(torch.isfinite(got).all()), f"11b {label}: non-finite forward")
+        check(rel < FORWARD_REL_TOL, f"11b {label}: relative error {rel:.3e}")
+        check(folded_only(counts, per_forward), f"11b {label}: launches {counts}")
+        if extra:  # the input matters
+            with torch.inference_mode():
+                plain = model(x.cuda().bfloat16(), t.cuda()).cpu()
+            check(rel_l2(plain, got) > 10 * FORWARD_REL_TOL,
+                  "11b: x_self_cond left the forward unchanged")
+        del model, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_host_data(smi: str) -> dict:
+    """11c: ``source="geogen"`` without GeoGen; the native generator built on the
+    card; 10 flagship micro-steps through the train loop on it (``prefetch``)
+    and on the synthetic source."""
+    cfg = flagship_train_config(None)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fallback = geogen_data.get_dataset(dataclasses.replace(cfg.data, source="geogen"),
+                                           seed=0, device="cuda")
+    messages = [str(w.message) for w in caught]
+    batch = next(fallback.batches(TRAIN_MICRO_BATCH))
+    say("host data", f"get_dataset(source=\"geogen\") without GeoGen: warnings {messages}; "
+        f"{type(fallback).__name__} batch {tuple(batch.shape)} {batch.dtype} on {batch.device}")
+    check("GeoGen not installed; falling back to synthetic generator" in messages
+          and isinstance(fallback, SyntheticGeoDataset) and batch.is_cuda
+          and batch.dtype == torch.int32, "11c: the GeoGen fallback")
+
+    start = time.perf_counter()
+    library = native_data.build_library()  # raises where g++ fails
+    build_s = time.perf_counter() - start
+    check(native_data.native_available(), "11c: the native generator does not load")
+    shape = cfg.data.shape
+    native_data.generate_batch(TRAIN_MICRO_BATCH, shape, seed=0)
+    start = time.perf_counter()
+    for i in range(NATIVE_BATCHES):
+        volumes = native_data.generate_batch(TRAIN_MICRO_BATCH, shape, seed=i)
+    per_s = NATIVE_BATCHES / (time.perf_counter() - start)
+    check(volumes.shape == (TRAIN_MICRO_BATCH, *shape) and int(volumes.min()) == -1
+          and int(volumes.max()) <= cfg.data.num_categories - 2, "11c: native batches malformed")
+    say("host data", f"native generator built by g++ in {build_s:.2f} s ({library.name}); "
+        f"b{TRAIN_MICRO_BATCH} x {shape[0]}³ batches alone: {per_s:.1f} batches/s "
+        f"({per_s * TRAIN_MICRO_BATCH:.1f} volumes/s, {os.cpu_count()} host cores)")
+
+    launches, rates = {}, {}
+    native_ds = lambda data, seed, device: native_data.NativeGeoDataset(  # noqa: E731
+        data.shape, dataset_size=data.epoch_size, n_categories=data.num_categories, seed=seed)
+    for source in ("native", "synthetic"):
+        patch = (mock.patch.object(train_loop, "get_dataset", native_ds) if source == "native"
+                 else contextlib.nullcontext())
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with patch, contextlib.redirect_stdout(io.StringIO()):
+            result = train_loop.train(cfg, num_steps=HOST_STEPS, device="cuda")
+        counts = read_counts()
+        launches[f"host data {source}"] = counts
+        rates[source] = result.steps_per_sec
+        check(result.state.step == HOST_STEPS and folded_only(counts, 6 * HOST_STEPS)
+              and all(np.isfinite(h["train_loss"]) for h in result.history),
+              f"11c {source}: step {result.state.step}, launches {counts}")
+        say("host data", f"train loop on the {source} source, flagship 64³ b{TRAIN_MICRO_BATCH} x "
+            f"accumulation {TRAIN_ACCUM}, {HOST_STEPS} micro-steps: {result.steps_per_sec:.3f} "
+            f"micro-steps/s after the first, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+            f"{[round(h['train_loss'], 4) for h in result.history]}; launches {counts}")
+        del result
+    say("host data", f"micro-steps/s: native {rates['native']:.3f} against synthetic "
+        f"{rates['synthetic']:.3f} (ratio {rates['native'] / rates['synthetic']:.3f}); the "
+        f"generator alone makes {per_s:.1f} batches/s; {smi}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grads_128(cfg, weights, batch, seed: int) -> torch.Tensor:
+    """All parameters' gradients of one 128³ loss of ``cfg`` (training mode,
+    dropout on) from ``weights``, flattened in f32."""
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(weights)
+    model.train()
+    table = torch.from_numpy(simplex_embedding(cfg.data.num_categories,
+                                               cfg.data.embedding_dim)).cuda()
+    loss, _ = train_steps._loss(cfg)(train_steps.rematerialised(model, cfg), batch, table,
+                                     torch.Generator(device="cuda").manual_seed(seed))
+    loss.backward()
+    flat = torch.cat([p.grad.float().reshape(-1) for p in model.parameters()])
+    del model
+    torch.cuda.empty_cache()
+    return flat
+
+
+def phase_128(smi: str) -> tuple:
+    """11d: K1 and K2 at b1 x 2^21 tokens against their plain versions and timed;
+    the chunked backward at 2^21 rows against the one-shot bf16 form; flagship
+    micro-steps at 128³ b1 plain, with remat_blocks, and with remat "nothing"
+    plus the bf16 objective; the first two's gradients; one 128³ sample from
+    the trained release."""
+    n = TOKENS_128
+    worst = {name: 0.0 for name in FOLDED}
+    q, k, v, mk, mv = make_inputs(1, n, seed=400)
+    ctx_plain = la.folded_context_plain(k, v, mk, mv, HEADS)
+    ctx, again = (la.folded_context(k, v, mk, mv, HEADS) for _ in range(2))
+    out_plain = la.folded_project_plain(q, ctx_plain, HEADS)
+    out, out_again = (la.folded_project(q, ctx_plain, HEADS) for _ in range(2))
+    torch.cuda.synchronize()
+    label = f"b1 x {n}"
+    for name, got, second, want in (("folded_context", ctx, again, ctx_plain),
+                                    ("folded_project", out, out_again, out_plain)):
+        worst[name] = compare(name, label, got, want)
+        check(torch.equal(got, second), f"{name} {label}: a second launch differs")
+    rows = {}
+    nbytes, flops, exps = context_work(1, n)
+    rows["folded_context"] = timed_row(
+        "folded_context", label, lambda: la.folded_context(k, v, mk, mv, HEADS),
+        lambda: la.folded_context_plain(k, v, mk, mv, HEADS), nbytes, flops, exps=exps)
+    nbytes, flops, exps = project_work(1, n)
+    rows["folded_project"] = timed_row(
+        "folded_project", label, lambda: la.folded_project(q, ctx_plain, HEADS),
+        lambda: la.folded_project_plain(q, ctx_plain, HEADS), nbytes, flops, exps=exps)
+    del ctx, again, ctx_plain, out, out_again, out_plain
+
+    # the chunked backward at 2^21 rows against the one-shot bf16 form, called directly
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(401),
+                       device="cuda").to(torch.bfloat16)
+    grads, cost = {}, {}
+    for form, fn in (("chunked", la.folded_backward_chunked),
+                     ("closed_form_bf16", la.folded_backward_closed_form_bf16)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        grads[form] = fn(q, k, v, mk, mv, dout, HEADS)
+        torch.cuda.synchronize()
+        cost[form] = ((time.perf_counter() - start) * 1e3,
+                      (torch.cuda.max_memory_allocated() - base) / 2**30)
+    errs = [rel_l2(a, b) for a, b in zip(grads["chunked"], grads["closed_form_bf16"])]
+    check(la.backward_form(None, n) == "chunked", "11d: the backward at 2^21 rows is not chunked")
+    say("128", f"folded backward at b1 x {n} rows: chunked {cost['chunked'][0]:.1f} ms, "
+        f"{cost['chunked'][1]:.2f} GiB above its inputs; one-shot closed_form_bf16 "
+        f"{cost['closed_form_bf16'][0]:.1f} ms, {cost['closed_form_bf16'][1]:.2f} GiB (first "
+        f"calls); relative L2 " + ", ".join(f"{g} {e:.3e}" for g, e in zip(
+            ("dq", "dk", "dv", "dmk", "dmv"), errs)) + f" (limit {BACKWARD_REL_TOL:g})")
+    check(all(bool(torch.isfinite(g).all()) for g in grads["chunked"])
+          and max(errs) <= BACKWARD_REL_TOL, f"11d chunked backward: relative L2 {max(errs):.3e}")
+    del q, k, v, mk, mv, dout, grads
+    torch.cuda.empty_cache()
+
+    # flagship micro-steps at 128³ b1 in three forms
+    base = unconditional_64()
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, shape=(SIDE_128,) * 3, batch_size=1),
+        training=dataclasses.replace(base.training, accumulate_grad_batches=TRAIN_ACCUM))
+    lean = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, remat=True, remat_policy="nothing", objective_dtype="bfloat16"))
+    forms = (("plain", cfg, PER_FORWARD_128),
+             ("remat_blocks", with_model(cfg, remat_blocks=True), 2 * PER_FORWARD_128),
+             ("remat nothing + bf16 objective", lean, 2 * PER_FORWARD_128))
+    launches, steps = {}, {}
+    for label, form_cfg, per_step in forms:
+        trained = train(f"128³ {label}", form_cfg, dict.fromkeys(FOLDED, per_step), steps=6)
+        launches[f"128 train {label}"] = trained["launches"]
+        steps[label] = trained
+    say("128", "micro-step at 128³ b1 x accumulation 2: " + "; ".join(
+        f"{label} {r['ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB" for label, r in steps.items())
+        + f"; {smi}")
+
+    # the gradients of the plain and the remat_blocks step, from the same weights
+    weights = {k: v.detach() for k, v in
+               init_model_variables(cfg, seed=41, device="cuda").state_dict().items()}
+    batch = synthetic_geology_batch(torch.Generator(device="cuda").manual_seed(42), 1,
+                                    cfg.data.shape)
+    plain = grads_128(cfg, weights, batch, 43)
+    floor = rel_l2(grads_128(cfg, weights, batch, 43), plain)
+    blocks = rel_l2(grads_128(with_model(cfg, remat_blocks=True), weights, batch, 43), plain)
+    say("128", f"gradients, dropout on: remat_blocks against the plain step relative L2 "
+        f"{blocks:.3e} (limit {REMAT_GRAD_REL_TOL:g}); two plain steps {floor:.3e}")
+    check(blocks <= REMAT_GRAD_REL_TOL, f"11d: remat_blocks gradients {blocks:.3e} off")
+    del plain, weights, batch
+    torch.cuda.empty_cache()
+
+    # one 128³ sample from the trained release
+    release = unconditional_64()
+    model, table = release_model(release)
+    ic = release.inference
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = sample_unconditional(
+        model, table, n_samples=1, batch_size=1, data_shape=(SIDE_128,) * 3,
+        embedding_dim=release.data.embedding_dim, seed=0, device="cuda", verbose=False,
+        t0=ic.t0, tf=ic.tf, n_frames=ic.n_frames, substeps=ic.substeps, method=ic.method)
+    counts = read_counts()
+    launches["128 sample"] = counts
+    seconds = result.seconds_per_batch[0]
+    fractions = np.bincount(result.decoded.ravel(), minlength=release.data.num_categories)
+    say("128", f"sample_unconditional from the trained release at 128³ b1, rk4 "
+        f"{ic.n_frames} frames x {ic.substeps} substeps: nfe {result.nfe}, {seconds:.3f} s "
+        f"({seconds / result.nfe * 1e3:.1f} ms per evaluation, cuDNN's set-up included), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; air "
+        f"{fractions[0] / result.decoded.size:.4f} of voxels; launches {counts}; {smi}")
+    check(result.nfe == 120 and folded_only(counts, PER_FORWARD_128 * result.nfe)
+          and result.decoded.shape == (1, *[SIDE_128] * 3), f"11d sample: launches {counts}")
+    del model, result
+    torch.cuda.empty_cache()
+    return launches, rows, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false); "
@@ -2280,6 +2701,13 @@ def main() -> int:
     launches.update(phase_adaptive(smi))
     launches.update(phase_sde_and_dispatch(smi, rk4))
     launches.update(phase_conditional_apps(smi))
+    launches.update(phase_ckpt(smi))
+    launches.update(phase_options())
+    launches.update(phase_host_data(smi))
+    launches_128, rows_128, worst_128 = phase_128(smi)
+    launches.update(launches_128)
+    for name, err in worst_128.items():
+        worst[name] = max(worst[name], err)
 
     kernels = []
     for name in KERNELS:
@@ -2295,6 +2723,9 @@ def main() -> int:
             "bound_by": "bytes" if row["bound_by"] == "bytes" else "operations",
             "bound_term": row["bound_by"], "library_ms": row["library_ms"],
         })
+        if name in rows_128:  # the 128³ stage: b1 x 2^21 tokens
+            kernels[-1]["b1_2097152"] = {key: rows_128[name][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

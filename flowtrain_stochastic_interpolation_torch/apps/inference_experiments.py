@@ -20,9 +20,9 @@ Port of ``apps/inference_experiments.py``, in three stages:
    probable model and the dike probability (``ops/ensemble.py``), saved as
    ``.npy``, and the most probable model's voxel accuracy against the truth.
 
-Weights come from ``--checkpoint-path`` (a release directory or a checkpoint
-directory of the port), else a seeded fresh init with a warning; a ``.ckpt``
-raises, and nothing is downloaded. ``--device`` is ``cuda`` (the default) or
+Weights come from ``--checkpoint-path`` (a reference ``.ckpt``, a release
+directory or a checkpoint directory of the port), else a seeded fresh init
+with a warning; nothing is downloaded. ``--device`` is ``cuda`` (the default) or
 ``cpu``. Importing this module runs nothing.
 """
 
@@ -38,7 +38,7 @@ import torch
 
 from flowtrain_stochastic_interpolation_torch.apps.unconditional import load_weights
 from flowtrain_stochastic_interpolation_torch.config import conditional_64, tiny_test
-from flowtrain_stochastic_interpolation_torch.data.synthetic import get_dataset
+from flowtrain_stochastic_interpolation_torch.data.geogen import get_dataset
 from flowtrain_stochastic_interpolation_torch.device import resolve_device
 from flowtrain_stochastic_interpolation_torch.inference import (
     SampleResult,
@@ -64,7 +64,9 @@ def create_cond_data(save_dir: str, n_scenarios: int, config, seed: int = 0,
                      device=None) -> None:
     """The scenarios' true volumes and observed boreholes (unobserved = -1)."""
     dev = resolve_device(device)
-    volumes = next(get_dataset(config.data, seed=seed, device=dev).batches(n_scenarios))
+    # GeoGen's batches are numpy arrays on the host, the synthetic ones tensors on dev
+    volumes = torch.as_tensor(
+        next(get_dataset(config.data, seed=seed, device=dev).batches(n_scenarios)), device=dev)
     for s in range(n_scenarios):
         folder = os.path.join(save_dir, f"scenario_{s}")
         os.makedirs(folder, exist_ok=True)
@@ -149,7 +151,8 @@ def parse_arguments(argv: Optional[Sequence[str]] = None):
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--use-ema", action=argparse.BooleanOptionalAction, default=True)
     p.add_argument("--checkpoint-path", type=str, default=None,
-                   help="release-weights directory or checkpoint directory of this port")
+                   help="reference .ckpt, release-weights directory or checkpoint "
+                        "directory of this port")
     p.add_argument("--preset", choices=["flagship", "tiny"], default="flagship")
     p.add_argument("--save-dir", type=str,
                    default=os.path.join(os.path.dirname(os.path.abspath(__file__)),

@@ -12,18 +12,18 @@ both``, ``--n-samples``, ``--batch-size``, ``--seed``, ``--steps``,
 
 ``--train-devices`` and ``--infer-device`` take ``cuda`` (the default) or
 ``cpu``; without a card, ``cuda`` raises. Weights resolve from an explicit
-``--checkpoint-path`` (a release directory such as
-``artifacts/weights/uncond_demo_64``, or a checkpoint directory of this
-port), then the run's own checkpoint directory, then a seeded fresh init
+``--checkpoint-path`` (a reference Lightning ``.ckpt``, a release directory
+such as ``artifacts/weights/uncond_demo_64``, or a checkpoint directory of
+this port), then the run's own checkpoint directory, then a seeded fresh init
 with a warning. ``--adaptive`` samples with dopri5 at the config's ``atol``
-and ``rtol``. Not ported: the Lightning ``.ckpt`` conversion and the
-download of the published weights; asking for a ``.ckpt`` raises. Importing
+and ``rtol``. Not ported: the download of the published weights. Importing
 this module runs nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 from typing import Optional, Sequence
 
@@ -34,8 +34,12 @@ from flowtrain_stochastic_interpolation_torch.config import tiny_test, unconditi
 from flowtrain_stochastic_interpolation_torch.device import resolve_device
 from flowtrain_stochastic_interpolation_torch.inference import SampleResult, sample_unconditional
 from flowtrain_stochastic_interpolation_torch.models.persistence import (
+    LIGHTNING_MODEL_KEYS,
+    convert_lightning_module,
     is_release_weights_dir,
+    load_lightning_checkpoint,
     load_release_weights,
+    params_from_jax,
     state_dict_from_release,
 )
 from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
@@ -64,16 +68,14 @@ def setup_directories(root_dir: str, name: str) -> dict:
 
 
 def load_weights(config, path: Optional[str], use_ema: bool = True, device=None):
-    """``(model, table)``: the model in eval mode holding the weights of ``path``,
-    a release directory or a checkpoint directory of the port, or a seeded fresh
-    init with a warning where ``path`` is None or holds no checkpoint. A
-    Lightning ``.ckpt`` raises (its conversion is not ported)."""
+    """``(model, table)``: the model in eval mode holding the weights of ``path``
+    (a reference Lightning ``.ckpt``, a release directory or a checkpoint
+    directory of the port), or a seeded fresh init with a warning where
+    ``path`` is None or holds no checkpoint. The model is ``config``'s,
+    conditional or not."""
     dev = resolve_device(device)
     if path and path.endswith(".ckpt"):
-        raise NotImplementedError(
-            "the Lightning .ckpt conversion is not ported (ROADMAP Queue 1 item 14); "
-            "pass a release directory or a checkpoint directory of this port"
-        )
+        return _load_lightning(config, path, use_ema, dev)
     if path and is_release_weights_dir(path):
         tree, _, meta = load_release_weights(path)
         model = build_model(config, device=dev)
@@ -89,10 +91,32 @@ def load_weights(config, path: Optional[str], use_ema: bool = True, device=None)
         state = mgr.restore(state)
         print(f"loaded checkpoint step {mgr.latest_step()} from {path}")
         if use_ema and state.ema_params is not None:
-            model.load_state_dict(state.ema_params)
+            model.load_state_dict(state.model_state_dict(use_ema=True))
     else:
         print("WARNING: no checkpoint found — using random init")
     return model.eval(), state.constants["embedding"]
+
+
+def _load_lightning(config, path: str, use_ema: bool, dev):
+    """The model of a reference ``.ckpt`` and its embedding table. The model is
+    ``config``'s with the options that the checkpoint's hyper-parameters set
+    for the conversion (the time embedding, ``full_attn``, ``attn_enabled``), so
+    that a checkpoint trained with RandomFourier time gets its frozen features
+    as buffers."""
+    ckpt = load_lightning_checkpoint(path)
+    converted = convert_lightning_module(ckpt, conditional=config.model.conditional,
+                                         use_ema=use_ema)
+    options = {k: ckpt["hparams"][k] for k in LIGHTNING_MODEL_KEYS if k in ckpt["hparams"]}
+    if options.get("full_attn") is not None:
+        options["full_attn"] = tuple(options["full_attn"])
+    config = dataclasses.replace(config, model=dataclasses.replace(config.model, **options))
+    model = build_model(config, device=dev)
+    model.load_state_dict(params_from_jax(
+        {"params": converted["params"], "constants": converted["constants"]}, model))
+    table = torch.from_numpy(converted["embedding"]).to(dev)
+    print(f"loaded Lightning checkpoint {path} (EMA {use_ema and bool(ckpt['ema_shadow'])}; "
+          f"model options {options})")
+    return model.eval(), table
 
 
 def load_variables(config, checkpoint_path: Optional[str], dirs: dict, use_ema: bool = True,
@@ -155,7 +179,8 @@ def parse_arguments(argv: Optional[Sequence[str]] = None):
     p.add_argument("--seed", type=int, default=100)
     p.add_argument("--steps", type=int, default=None, help="cap training steps")
     p.add_argument("--checkpoint-path", type=str, default=None,
-                   help="release-weights directory or checkpoint directory of this port")
+                   help="reference .ckpt, release-weights directory or checkpoint "
+                        "directory of this port")
     p.add_argument("--adaptive", action="store_true",
                    help="sample with adaptive dopri5 at the config's atol / rtol")
     p.add_argument("--save-images", action=argparse.BooleanOptionalAction, default=True)

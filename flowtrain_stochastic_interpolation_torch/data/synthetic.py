@@ -16,7 +16,7 @@ reads (the JAX package's ``SyntheticGeoDataset``): ``batches(batch_size,
 epoch)`` yields an epoch's batches on the device, batch ``i`` drawn from a
 generator seeded from ``(seed, epoch, i)`` (the counterpart of JAX's
 ``fold_in`` chain), so a stream restarted at an epoch repeats it exactly.
-:func:`get_dataset` resolves ``DataConfig.source``.
+:func:`data.geogen.get_dataset` resolves ``DataConfig.source``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ from typing import Dict, Iterator, Tuple
 
 import torch
 
-from flowtrain_stochastic_interpolation_torch.config import DataConfig
 from flowtrain_stochastic_interpolation_torch.device import resolve_device
 from flowtrain_stochastic_interpolation_torch.utils.rng import generator
 
@@ -137,10 +136,11 @@ def synthetic_geology_batch(generator: torch.Generator, batch_size: int,
     return _stages(generator, batch_size, tuple(shape), n_categories)["topography"]
 
 
-
 class SyntheticGeoDataset:
     """The synthetic generator as a stream of epochs of ``dataset_size`` volumes
     on ``device`` (``cuda`` by default)."""
+
+    host_side = False  # the batches are made on the device
 
     def __init__(self, model_resolution: Tuple[int, int, int] = (64, 64, 64),
                  dataset_size: int = 10_000, n_categories: int = 15,
@@ -157,14 +157,3 @@ class SyntheticGeoDataset:
             gen = generator(self.device, self.seed, epoch, i)
             yield synthetic_geology_batch(gen, batch_size, self.model_resolution,
                                           self.n_categories)
-
-
-def get_dataset(cfg: DataConfig, seed: int = 0, device=None) -> SyntheticGeoDataset:
-    """The configured data source. Only ``"synthetic"`` is ported."""
-    if cfg.source != "synthetic":
-        raise NotImplementedError(
-            f"data source {cfg.source!r} is not ported: GeoGen and numpy sources are "
-            "ROADMAP Queue 1 item 9"
-        )
-    return SyntheticGeoDataset(cfg.shape, cfg.epoch_size, cfg.num_categories, seed,
-                               device=device)

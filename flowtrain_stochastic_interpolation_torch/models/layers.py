@@ -3,7 +3,10 @@
 Port of ``flowtrain_stochastic_interpolation_tpu/models/layers.py``. Parameters
 are stored in float32; each layer computes in its ``dtype`` (bfloat16 on the
 flagship) by casting its input and weights at the call, as the flax layers'
-``dtype`` does. 1×1 convolutions are channel :class:`Dense` layers.
+``dtype`` does. Without one (an f32 model, flax's ``dtype=None``) each keeps
+the JAX layer's rule: a convolution computes in its input's dtype (JAX's
+``Conv3DFast``), a :class:`Dense` in the input's and the params' promoted
+dtype (flax ``nn.Dense``). 1×1 convolutions are channel :class:`Dense` layers.
 
 The JAX package's 3³ and 7³ convolutions pick among XLA formulations for the
 TPU (``ops/fat_conv.py``, ``ops/packed_conv.py``); all compute the same SAME
@@ -53,7 +56,8 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype or x.dtype
+        # without a dtype, flax's rule: the input's and the f32 params' promoted
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
@@ -131,14 +135,29 @@ class Downsample(nn.Module):
         return self.conv(resize3d(x, 0.5))
 
 
-class LearnedFourierEmbedding(nn.Module):
-    """Trainable Fourier features ``cos(t·f + φ)·√2``, f ~ N(0, bw²), φ ~ U(0, 1)."""
+class SinusoidalPosEmb(nn.Module):
+    """Fixed sin/cos features, interleaved ``(sin, cos)`` pairs, with frequencies
+    ``exp(-(i + 1)·log(theta) / (dim / 2))`` indexed from i + 1; no parameters."""
 
-    def __init__(self, num_channels: int, bandwidth: float = 100.0, device=None):
+    def __init__(self, dim: int, theta: float = 10000.0):
+        super().__init__()
+        self.dim, self.theta = dim, theta
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        half = self.dim // 2
+        step = math.log(self.theta) / half
+        freqs = torch.exp(torch.arange(1, half + 1, device=t.device, dtype=torch.float32) * -step)
+        arg = t[:, None] * freqs[None, :]
+        return torch.stack([torch.sin(arg), torch.cos(arg)], dim=-1).reshape(t.shape[0], -1)
+
+
+class _FourierEmbedding(nn.Module):
+    """``cos(t·f + φ)·√2`` with f ~ N(0, bw²) and φ ~ U(0, 1): the phase is added
+    before any 2π, the reference's quirk, so it spans a fraction of a period."""
+
+    def __init__(self, bandwidth: float):
         super().__init__()
         self.bandwidth = bandwidth
-        self.freqs = nn.Parameter(torch.empty(num_channels, device=device))
-        self.phases = nn.Parameter(torch.empty(num_channels, device=device))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
@@ -150,14 +169,41 @@ class LearnedFourierEmbedding(nn.Module):
         return torch.cos(y) * math.sqrt(2.0)
 
 
-class TimeMLP(nn.Module):
-    """LearnedFourier embed → Dense(time_dim) → exact GELU → Dense(time_dim)."""
+class LearnedFourierEmbedding(_FourierEmbedding):
+    """Trainable Fourier features: f and φ are parameters."""
 
-    def __init__(self, time_resolution: int, time_dim: int, *, bandwidth: float = 100.0,
-                 dtype=None, device=None):
+    def __init__(self, num_channels: int, bandwidth: float = 100.0, device=None):
+        super().__init__(bandwidth)
+        self.freqs = nn.Parameter(torch.empty(num_channels, device=device))
+        self.phases = nn.Parameter(torch.empty(num_channels, device=device))
+
+
+class RandomFourierEmbedding(_FourierEmbedding):
+    """Frozen Fourier features: f and φ are persistent buffers (the JAX
+    ``constants`` collection), in the ``state_dict`` but out of the
+    optimiser's and the EMA's reach."""
+
+    def __init__(self, num_channels: int, bandwidth: float = 100.0, device=None):
+        super().__init__(bandwidth)
+        self.register_buffer("freqs", torch.empty(num_channels, device=device))
+        self.register_buffer("phases", torch.empty(num_channels, device=device))
+
+
+class TimeMLP(nn.Module):
+    """Time embedding → Dense(time_dim) → exact GELU → Dense(time_dim). The
+    embedding is sinusoidal with ``sin_pos``, else LearnedFourier with
+    ``learned_emb``, else RandomFourier."""
+
+    def __init__(self, time_resolution: int, time_dim: int, *, sin_pos: bool = False,
+                 learned_emb: bool = True, bandwidth: float = 100.0, dtype=None, device=None):
         super().__init__()
         self.dtype = dtype
-        self.embed = LearnedFourierEmbedding(time_resolution, bandwidth, device=device)
+        if sin_pos:
+            self.embed = SinusoidalPosEmb(time_resolution)
+        elif learned_emb:
+            self.embed = LearnedFourierEmbedding(time_resolution, bandwidth, device=device)
+        else:
+            self.embed = RandomFourierEmbedding(time_resolution, bandwidth, device=device)
         self.fc1 = Dense(time_resolution, time_dim, dtype=dtype, device=device)
         self.fc2 = Dense(time_dim, time_dim, dtype=dtype, device=device)
 

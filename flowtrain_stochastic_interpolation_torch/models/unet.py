@@ -6,6 +6,16 @@ bottleneck, mirrored ups with two skip concats per stage, a final res block on
 the concat with the init residual, and a 1×1 out conv. Layout is channels-last
 ``[B, X, Y, Z, C]``; time is a ``[B]`` vector; the output is float32.
 
+Every constructor option of the flax module is here: the time embedding
+(sinusoidal with ``time_sin_pos``, else LearnedFourier with
+``time_learned_emb``, else RandomFourier, whose frozen features are buffers),
+``self_condition`` (``x_self_cond``, zeros when absent, concatenated before x
+on the channels, so the 7³ input conv takes twice the data channels),
+``attn_enabled=False`` (no attention module and no residual add) and
+``remat_blocks`` (an activation checkpoint around each ResnetBlock and each
+attention module while gradients are on: :func:`models.remat.checkpoint`,
+which replays the dropout generator's draws in the recompute).
+
 A UNet is built in eval mode, the deterministic forward that the flax
 module's ``deterministic=True`` default gives (and that sampling needs).
 ``model.train()`` (as ``train.steps.make_train_step`` does) turns on the
@@ -38,6 +48,13 @@ from flowtrain_stochastic_interpolation_torch.models.layers import (
     TimeMLP,
     Upsample,
 )
+from flowtrain_stochastic_interpolation_torch.models.remat import checkpoint
+
+
+# the config's compute dtype, as the JAX package maps it: "float32" is flax's
+# dtype=None (each layer computes in its input's dtype or promotes it to the f32
+# params, models.layers), which differs from bf16 only where the inputs are bf16
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": None}
 
 
 def _cast_tuple(v, length: int) -> tuple:
@@ -56,8 +73,12 @@ class UNet(nn.Module):
         dim: int,
         dim_mults: Sequence[int] = (1, 2, 4, 8),
         data_channels: int = 3,
+        self_condition: bool = False,
         time_resolution: int = 64,
+        time_sin_pos: bool = False,
         time_bandwidth: float = 100.0,
+        time_learned_emb: bool = True,
+        attn_enabled: bool = True,
         attn_dim_head: Union[int, Sequence[int]] = 64,
         attn_heads: Union[int, Sequence[int]] = 4,
         full_attn: Optional[Sequence[bool]] = None,
@@ -70,11 +91,9 @@ class UNet(nn.Module):
         device=None,
     ):
         super().__init__()
-        if remat_blocks:
-            raise NotImplementedError(
-                "remat_blocks is not ported (ROADMAP Queue 1, the 128³ memory forms)"
-            )
         self.dim = dim
+        self.self_condition = self_condition
+        self.remat_blocks = remat_blocks
         self.dim_mults = tuple(dim_mults)
         self.dtype = dtype
         n_stages = len(self.dim_mults)
@@ -87,6 +106,8 @@ class UNet(nn.Module):
         kw = dict(dtype=dtype, device=device)
 
         def attn(ch, is_full, h, dh):
+            if not attn_enabled:
+                return None
             if is_full:
                 return Attention(ch, h, dh, flash=flash_attn, **kw)
             return LinearAttention(ch, h, dh, fused_folded=fused_folded_attn,
@@ -96,7 +117,8 @@ class UNet(nn.Module):
             return ResnetBlock(ch_in, ch_out, time_dim, dropout=dropout, **kw)
 
         self._input_convs(data_channels, dim, kw)
-        self.time_mlp = TimeMLP(time_resolution, time_dim, bandwidth=time_bandwidth, **kw)
+        self.time_mlp = TimeMLP(time_resolution, time_dim, sin_pos=time_sin_pos,
+                                learned_emb=time_learned_emb, bandwidth=time_bandwidth, **kw)
 
         skip_dims = []
         for i, (dim_in, dim_out) in enumerate(in_out):
@@ -131,27 +153,20 @@ class UNet(nn.Module):
         self.eval()
 
     def _input_convs(self, data_channels: int, dim: int, kw: dict) -> None:
-        self.init_conv = Conv3d(data_channels, dim, 7, **kw)
+        self.init_conv = Conv3d(data_channels * (1 + self.self_condition), dim, 7, **kw)
 
     @staticmethod
     def config_kwargs(cfg: ModelConfig, device=None) -> dict:
-        """The constructor's arguments for a :class:`config.ModelConfig`; raises
-        ``NotImplementedError`` for what the port lacks (self-conditioning,
-        sinusoidal or RandomFourier time, no attention)."""
-        if cfg.self_condition or cfg.time_sin_pos or not cfg.time_learned_emb:
-            raise NotImplementedError(
-                "the port's UNets have LearnedFourier time and no self-conditioning "
-                "(ROADMAP Queue 1, the rest of the UNet)"
-            )
-        if not cfg.attn_enabled:
-            raise NotImplementedError("the port's UNets always have attention")
+        """The constructor's arguments for a :class:`config.ModelConfig`."""
         return dict(
             dim=cfg.dim, dim_mults=cfg.dim_mults, data_channels=cfg.data_channels,
-            time_resolution=cfg.time_resolution, time_bandwidth=cfg.time_bandwidth,
+            self_condition=cfg.self_condition, time_resolution=cfg.time_resolution,
+            time_sin_pos=cfg.time_sin_pos, time_bandwidth=cfg.time_bandwidth,
+            time_learned_emb=cfg.time_learned_emb, attn_enabled=cfg.attn_enabled,
             attn_dim_head=cfg.attn_dim_head, attn_heads=cfg.attn_heads,
             full_attn=cfg.full_attn, dropout=cfg.dropout, flash_attn=cfg.flash_attn,
             fused_folded_attn=cfg.fused_folded_attn, folded_attn_vjp=cfg.attn_folded_vjp,
-            remat_blocks=cfg.remat_blocks, dtype=getattr(torch, cfg.dtype),
+            remat_blocks=cfg.remat_blocks, dtype=COMPUTE_DTYPES.get(cfg.dtype),
             device=resolve_device(device),
         )
 
@@ -184,14 +199,43 @@ class UNet(nn.Module):
                 )
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                x_self_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Velocity ``[B, X, Y, Z, C]`` f32; ``generator`` draws the dropout masks
-        in training."""
+        in training; ``x_self_cond`` is the self-conditioning input (zeros when
+        None) of a model built with ``self_condition``."""
         self.check_spatial(x)
+        x = self.with_self_cond(x, x_self_cond)
         x = x.to(self.dtype or x.dtype)
-        x = self.init_conv(x)
         t = self.time_mlp(time.to(x.dtype))
-        return self.trunk(x, t, generator)
+        return self.trunk(self.init_conv(x), t, generator)
+
+    def with_self_cond(self, x: torch.Tensor, x_self_cond: Optional[torch.Tensor]) -> torch.Tensor:
+        """``cat(x_self_cond or zeros, x)`` on the channels with ``self_condition``,
+        else x (whose ``x_self_cond`` must then be None)."""
+        if not self.self_condition:
+            if x_self_cond is not None:
+                raise ValueError("x_self_cond given to a model built without self_condition")
+            return x
+        if x_self_cond is None:
+            x_self_cond = torch.zeros_like(x)
+        return torch.cat([x_self_cond.to(x.dtype), x], dim=-1)
+
+    def _res(self, name: str, x: torch.Tensor, t: torch.Tensor,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        block = getattr(self, name)
+        if self.remat_blocks and torch.is_grad_enabled():
+            return checkpoint(block, x, t, generator=generator)
+        return block(x, t, generator)
+
+    def _attn(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """``attn(x) + x``, or x where attention is off."""
+        attn = getattr(self, name)
+        if attn is None:
+            return x
+        if self.remat_blocks and torch.is_grad_enabled():
+            return checkpoint(lambda h, _: attn(h), x) + x
+        return attn(x) + x
 
     def trunk(self, x: torch.Tensor, t: torch.Tensor, generator: Optional[torch.Generator],
               fuse: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
@@ -205,29 +249,29 @@ class UNet(nn.Module):
         for i in range(n):
             if fuse is not None:
                 x = fuse(f"downs_{i}_atb", x)
-            x = getattr(self, f"downs_{i}_block1")(x, t, generator)
+            x = self._res(f"downs_{i}_block1", x, t, generator)
             skips.append(x)
-            x = getattr(self, f"downs_{i}_block2")(x, t, generator)
-            x = getattr(self, f"downs_{i}_attn")(x) + x
+            x = self._res(f"downs_{i}_block2", x, t, generator)
+            x = self._attn(f"downs_{i}_attn", x)
             skips.append(x)
             x = getattr(self, f"downs_{i}_downsample")(x)
 
-        x = self.mid_block1(x, t, generator)
-        x = self.mid_attn(x) + x
-        x = self.mid_block2(x, t, generator)
+        x = self._res("mid_block1", x, t, generator)
+        x = self._attn("mid_attn", x)
+        x = self._res("mid_block2", x, t, generator)
 
         for i in range(n):
             if fuse is not None:
                 x = fuse(f"ups_{i}_atb", x)
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = getattr(self, f"ups_{i}_block1")(x, t, generator)
+            x = self._res(f"ups_{i}_block1", x, t, generator)
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = getattr(self, f"ups_{i}_block2")(x, t, generator)
-            x = getattr(self, f"ups_{i}_attn")(x) + x
+            x = self._res(f"ups_{i}_block2", x, t, generator)
+            x = self._attn(f"ups_{i}_attn", x)
             x = getattr(self, f"ups_{i}_upsample")(x)
 
         x = torch.cat([x, r], dim=-1)
-        x = self.final_res_block(x, t, generator)
+        x = self._res("final_res_block", x, t, generator)
         return self.final_conv(x).float()
 
 

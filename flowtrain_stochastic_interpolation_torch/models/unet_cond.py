@@ -17,6 +17,13 @@ voxels, zero elsewhere. The trained variant, ``v3`` (the default):
 ``v2`` mixes without the time FiLM and the norm; ``v1`` embeds with conv3s
 and adds the embedding to x at the down stages only.
 
+The constructor options of :class:`models.unet.UNet` hold here too. With
+``self_condition`` the self-conditioning input joins x (not ATb) before
+``init_conv_x``, which then takes twice the data channels. Under a
+whole-forward checkpoint with ``save_atb`` (``train.steps``), the towers run
+inside :func:`models.remat.named_region` ``("atb_tower")``, so that the
+policy keeps their outputs.
+
 The two towers see only ATb, so they give the same result at every velocity
 evaluation of a solve; the forward recomputes them each time, as the JAX
 module does.
@@ -36,6 +43,7 @@ from torch import nn
 
 from flowtrain_stochastic_interpolation_torch.config import ModelConfig
 from flowtrain_stochastic_interpolation_torch.models.layers import Conv3d, Dense, RMSNorm
+from flowtrain_stochastic_interpolation_torch.models.remat import named_region
 from flowtrain_stochastic_interpolation_torch.models.resize import resize3d
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
 
@@ -54,9 +62,10 @@ class EmbedATb(nn.Module):
         self.conv2 = Conv3d(dim_out, dim_out, kernel, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.scale_factor != 1.0:
-            x = resize3d(x, self.scale_factor)
-        return self.conv2(F.silu(self.conv1(x)))
+        with named_region("atb_tower"):
+            if self.scale_factor != 1.0:
+                x = resize3d(x, self.scale_factor)
+            return self.conv2(F.silu(self.conv1(x)))
 
 
 class MixATb(nn.Module):
@@ -100,7 +109,7 @@ class UNet3DCond(UNet):
             raise ValueError(f"unknown variant {variant!r}; options: {VARIANTS}")
         super().__init__(dim, *args, **kwargs)
         self.variant = variant
-        data_channels = self.init_conv_x.weight.shape[1]
+        data_channels = self.init_conv_ATb.weight.shape[1]
         kw = dict(dtype=self.dtype, device=self.init_conv_x.weight.device)
         time_dim = dim * 4
         dims = [dim] + [dim * m for m in self.dim_mults]
@@ -124,7 +133,7 @@ class UNet3DCond(UNet):
 
     def _input_convs(self, data_channels: int, dim: int, kw: dict) -> None:
         self.init_conv_ATb = Conv3d(data_channels, data_channels, 7, **kw)
-        self.init_conv_x = Conv3d(data_channels, dim, 7, **kw)
+        self.init_conv_x = Conv3d(data_channels * (1 + self.self_condition), dim, 7, **kw)
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, *, device=None) -> "UNet3DCond":
@@ -137,16 +146,18 @@ class UNet3DCond(UNet):
         return cls(**cls.config_kwargs(cfg, device), variant=cfg.cond_variant)
 
     def forward(self, x: torch.Tensor, atb: torch.Tensor, time: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                x_self_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Velocity ``[B, X, Y, Z, C]`` f32 of the state ``x`` given ``atb`` (same
-        shape); ``generator`` draws the dropout masks in training."""
+        shape); ``generator`` draws the dropout masks in training;
+        ``x_self_cond`` as :meth:`UNet.forward`'s."""
         if x.shape != atb.shape:
             raise ValueError(f"x {tuple(x.shape)} vs ATb {tuple(atb.shape)}")
         self.check_spatial(x)
         dt = self.dtype or x.dtype
         atb_opened = self.init_conv_ATb(atb.to(dt))
-        x = self.init_conv_x(x.to(dt))
-        t = self.time_mlp(time.to(x.dtype))
+        x = self.init_conv_x(self.with_self_cond(x.to(dt), x_self_cond))
+        t = self.time_mlp(time.to(dt))
 
         def fuse(name: str, h: torch.Tensor) -> torch.Tensor:
             embed = getattr(self, f"{name}_embed", None)

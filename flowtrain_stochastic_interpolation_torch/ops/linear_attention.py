@@ -13,8 +13,10 @@ with ``h·d`` a multiple of 128:
 * K2, the projection (``folded_project``): ``out = groupsoftmax(q) · d^-½ @
   ctx`` with a per-head max, p and ctx rounded to bf16, f32 accumulation,
   output in q's dtype.
-* The backward: the JAX package's closed forms (``_folded_vjp_bwd_closed_form``
-  and ``_folded_vjp_bwd_closed_form_bf16``), plain XLA there and torch
+* The backward: the JAX package's closed forms (``_folded_vjp_bwd_closed_form``,
+  ``_folded_vjp_bwd_closed_form_bf16`` and, at 2^20 rows or more, the
+  row-chunked ``_folded_vjp_bwd_closed_form_chunked``) and its ``"autodiff"``
+  form (autograd through the f32 reference), plain XLA there and torch
   operations here; :func:`linear_attention_folded` is a
   ``torch.autograd.Function`` over K1 + K2 and them.
 
@@ -476,12 +478,11 @@ def linear_project(q: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Backward: the closed forms, as torch operations
 # ---------------------------------------------------------------------------
-# Above this many rows per item the JAX package hands the backward to its
-# row-chunked form (``_CHUNKED_BWD_MIN_ROWS``), which is not ported yet
-# (ROADMAP Queue 1, the 128³ memory forms).
+# From this many rows per item on, both one-shot closed forms hand the backward
+# to the row-chunked form (JAX's ``_CHUNKED_BWD_MIN_ROWS``): their [N, h·d]
+# intermediates pass a GB each at 128³'s 2^21 rows.
 CHUNKED_BWD_MIN_ROWS = 1 << 20
-BACKWARDS = ("closed_form_bf16", "closed_form")
-_UNPORTED_BACKWARDS = ("chunked", "autodiff")
+CHUNK_ROWS = 1 << 17  # the chunked form's row block (JAX's ``target_rows``)
 
 
 def _group_ones(hd: int, heads: int, device) -> torch.Tensor:
@@ -577,10 +578,116 @@ def folded_backward_closed_form_bf16(q, k, v, mem_k, mem_v, dout, heads: int):
             dmk.to(mem_k.dtype), dmv.to(mem_v.dtype))
 
 
+def folded_backward_chunked(q, k, v, mem_k, mem_v, dout, heads: int,
+                            target_rows: int = CHUNK_ROWS):
+    """``(dq, dk, dv, dmk, dmv)``: ``_folded_vjp_bwd_closed_form_chunked``, the f32
+    closed form over row blocks of ``target_rows`` (halved until it divides the
+    rows; under 512 rows a block, the one-shot f32 form). Rows meet only in
+    ``[b, h·d]`` and ``[b, h·d, h·d]`` reductions, so four passes over the
+    blocks, in JAX's order, give the one-shot result: (1) the column max of
+    k; (2) Z, U and W (the softmax normaliser, the unnormalised context and
+    the context's cotangent); (3) the column-softmax inner product; (4) dq, dk
+    and dv, written into preallocated outputs. The extra memory is a few
+    ``[b, chunk, h·d]`` f32 blocks instead of ``[b, N, h·d]`` f32 streams."""
+    b, n, hd = q.shape
+    chunk = min(n, target_rows)
+    while n % chunk:
+        chunk //= 2
+    if chunk < 512 and chunk != n:
+        return folded_backward_closed_form(q, k, v, mem_k, mem_v, dout, heads)
+    d = hd // heads
+    scale = d**-0.5
+    f32 = torch.float32
+    mkf, mvf = mem_k.float(), mem_v.float()
+    g = _group_ones(hd, heads, q.device)
+    blocks = [slice(i, i + chunk) for i in range(0, n, chunk)]
+
+    def s_q(qc):
+        m_q = qc.view(b, -1, heads, d).amax(dim=-1, keepdim=True)
+        e_q = torch.exp(qc - m_q.expand(b, qc.shape[1], heads, d).reshape(b, -1, hd))
+        return e_q / torch.matmul(e_q, g)
+
+    # pass 1: the column max of k, seeded by the memory tokens'
+    big_m = mkf.amax(dim=0)[None].expand(b, hd)
+    for sl in blocks:
+        big_m = torch.maximum(big_m, k[:, sl].float().amax(dim=1))
+    # pass 2: Z, U (the unnormalised context) and W (for the context's cotangent)
+    em = torch.exp(mkf[None] - big_m[:, None])                         # [b, n_mem, hd]
+    z = em.sum(dim=1)
+    u = torch.matmul(em.transpose(1, 2), mvf)
+    w = torch.zeros(b, hd, hd, dtype=f32, device=q.device)
+    for sl in blocks:
+        ek = torch.exp(k[:, sl].float() - big_m[:, None])
+        z = z + ek.sum(dim=1)
+        u = u + torch.matmul(ek.transpose(1, 2), v[:, sl].float())
+        w = w + torch.matmul(s_q(q[:, sl].float()).transpose(1, 2), dout[:, sl].float())
+    ctx = u / z[:, :, None] * g
+    d_ctx = scale * w * g
+    p_m = em / z[:, None]
+    d_pm = torch.matmul(mvf, d_ctx.transpose(1, 2))                   # [b, n_mem, hd]
+    # pass 3: the column-softmax inner product over every token
+    inner = (d_pm * p_m).sum(dim=1)
+    for sl in blocks:
+        p_kc = torch.exp(k[:, sl].float() - big_m[:, None]) / z[:, None]
+        d_pkc = torch.matmul(v[:, sl].float(), d_ctx.transpose(1, 2))
+        inner = inner + (d_pkc * p_kc).sum(dim=1)
+    # pass 4: each block's dq, dk and dv, written in place
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for sl in blocks:
+        qc, kc, vc, doc = (t[:, sl].float() for t in (q, k, v, dout))
+        sq = s_q(qc)
+        d_s = scale * torch.matmul(doc, ctx.transpose(1, 2))
+        dq[:, sl] = sq * (d_s - torch.matmul(d_s * sq, g))
+        p_kc = torch.exp(kc - big_m[:, None]) / z[:, None]
+        dv[:, sl] = torch.matmul(p_kc, d_ctx)
+        d_pkc = torch.matmul(vc, d_ctx.transpose(1, 2))
+        dk[:, sl] = p_kc * (d_pkc - inner[:, None])
+    dmv = torch.matmul(p_m, d_ctx).sum(dim=0)
+    dmk = (p_m * (d_pm - inner[:, None])).sum(dim=0)
+    return dq, dk, dv, dmk.to(mem_k.dtype), dmv.to(mem_v.dtype)
+
+
+def folded_reference(q, k, v, mem_k, mem_v, heads: int) -> torch.Tensor:
+    """The folded linear attention in f32 with the memory tokens concatenated
+    (JAX's ``_folded_reference``, the ``"autodiff"`` backward's recompute):
+    ``[B, N, h·d]`` in q's dtype."""
+    b, n, hd = q.shape
+    d = hd // heads
+    qf = q.float().view(b, n, heads, d)
+    kf = torch.cat([mem_k.float()[None].expand(b, -1, -1), k.float()], dim=1)
+    vf = torch.cat([mem_v.float()[None].expand(b, -1, -1), v.float()], dim=1)
+    qs = torch.softmax(qf, dim=-1) * d**-0.5
+    ks = torch.softmax(kf.view(b, -1, heads, d), dim=1)
+    ctx = torch.einsum("bnhd,bnhe->bhde", ks, vf.view(b, -1, heads, d))
+    return torch.einsum("bnhd,bhde->bnhe", qs, ctx).reshape(b, n, hd).to(q.dtype)
+
+
+def folded_backward_autodiff(q, k, v, mem_k, mem_v, dout, heads: int):
+    """``(dq, dk, dv, dmk, dmv)``: autograd through :func:`folded_reference`."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (q, k, v, mem_k, mem_v)]
+        out = folded_reference(*inputs, heads)
+        return torch.autograd.grad(out, inputs, dout)
+
+
 _BACKWARD_FNS = {
     "closed_form_bf16": folded_backward_closed_form_bf16,
     "closed_form": folded_backward_closed_form,
+    "chunked": folded_backward_chunked,
+    "autodiff": folded_backward_autodiff,
 }
+
+
+def backward_form(backward: Optional[str], rows: int) -> str:
+    """The folded backward that ``backward`` (None: ``"closed_form_bf16"``) takes
+    at ``rows`` rows per item: both closed forms hand over to ``"chunked"`` at
+    :data:`CHUNKED_BWD_MIN_ROWS` or more, as in JAX."""
+    backward = "closed_form_bf16" if backward is None else backward
+    if backward not in _BACKWARD_FNS:
+        raise ValueError(f"unknown backward {backward!r}; options: {tuple(_BACKWARD_FNS)}")
+    if backward != "autodiff" and rows >= CHUNKED_BWD_MIN_ROWS:
+        return "chunked"
+    return backward
 
 
 class _LinearAttentionFolded(torch.autograd.Function):
@@ -593,7 +700,8 @@ class _LinearAttentionFolded(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, mem_k, mem_v = ctx.saved_tensors
-        grads = _BACKWARD_FNS[ctx.backward](q, k, v, mem_k, mem_v, dout, ctx.heads)
+        grads = _BACKWARD_FNS[backward_form(ctx.backward, q.shape[1])](
+            q, k, v, mem_k, mem_v, dout, ctx.heads)
         return (*grads, None, None)
 
 
@@ -604,27 +712,16 @@ def linear_attention_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``mem_k``/``mem_v`` are the ``[n_mem, h·d]`` memory-KV tokens, folded the
     same way and shared across the batch. ``h·d`` must be a multiple of 128.
-    The forward is K1 + K2. ``backward`` picks the closed form of the
-    gradient: ``"closed_form_bf16"`` (the default, ``None``) or
-    ``"closed_form"``. The JAX package's ``"chunked"`` and ``"autodiff"``
-    forms, and any backward at 2^20 or more rows per item, are not ported:
-    asking for a gradient through them raises ``NotImplementedError``.
+    The forward is K1 + K2. ``backward`` picks the gradient's form:
+    ``"closed_form_bf16"`` (the default, ``None``), ``"closed_form"``,
+    ``"chunked"`` (the row-blocked f32 closed form, which both closed forms
+    take at 2^20 or more rows per item) or ``"autodiff"`` (autograd through
+    the f32 reference) (:func:`backward_form`).
     """
     hd = q.shape[-1]
     if hd % 128 != 0:
         raise ValueError(f"folded head dim {hd} must be a multiple of 128")
-    if backward is None:
-        backward = "closed_form_bf16"
-    if backward not in BACKWARDS + _UNPORTED_BACKWARDS:
-        raise ValueError(f"unknown backward {backward!r}")
-    tensors = (q, k, v, mem_k, mem_v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        if backward in _UNPORTED_BACKWARDS or q.shape[1] >= CHUNKED_BWD_MIN_ROWS:
-            raise NotImplementedError(
-                f"the {backward!r} folded backward at {q.shape[1]} rows per item is not "
-                "ported: the port has the one-shot closed forms below 2^20 rows "
-                "(ROADMAP Queue 1, the 128³ memory forms: the chunked folded backward)"
-            )
+    backward_form(backward, q.shape[1])  # checks the name
     return _LinearAttentionFolded.apply(q, k, v, mem_k, mem_v, heads, backward)
 
 

@@ -34,9 +34,10 @@ from flowtrain_stochastic_interpolation_torch.train.state import TrainState
 @contextlib.contextmanager
 @torch.no_grad()
 def weights_applied(model: nn.Module, params: Dict[str, torch.Tensor]):
-    """``model`` holding ``params`` (by name) inside the block, its own weights
-    after it; nothing is copied where ``params`` are the model's own tensors."""
-    own = dict(model.named_parameters())
+    """``model`` holding ``params`` (parameters and buffers, by name) inside the
+    block, its own after it; nothing is copied where ``params`` are the model's
+    own tensors."""
+    own = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     moved = [name for name, p in params.items() if own[name] is not p]
     targets = [own[name] for name in moved]
     saved = [t.detach().clone() for t in targets]
@@ -90,7 +91,7 @@ class InferenceCallback:
     def run_inference(self, state: TrainState, tag: str = "manual") -> dict:
         cfg = self.config
         use_ema = self.use_ema and cfg.ema.enabled and state.ema_params is not None
-        params = state.with_ema_applied().params if use_ema else state.params
+        params = state.model_state_dict(use_ema)
         table = state.constants["embedding"]
         device = table.device
         conditional = cfg.model.conditional

@@ -14,7 +14,11 @@ and ``train`` with the JAX loop's rules:
 * the objective's noise, times and dropout of micro-step ``s`` come from a
   generator seeded from ``(training.seed + 17, s)``, the counterpart of JAX's
   ``fold_in(key, state.step)``, so a resumed run draws what an uninterrupted
-  run draws.
+  run draws;
+* a dataset made on the host (``host_side``: GeoGen, the native generator)
+  is read through :func:`data.prefetch.prefetch` two batches ahead, each int32
+  batch pinned and copied to the device without blocking; a device-side one
+  (the synthetic generator) is read inline.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -30,7 +34,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from flowtrain_stochastic_interpolation_torch.config import ExperimentConfig
-from flowtrain_stochastic_interpolation_torch.data.synthetic import get_dataset
+from flowtrain_stochastic_interpolation_torch.data.geogen import get_dataset
+from flowtrain_stochastic_interpolation_torch.data.prefetch import prefetch
 from flowtrain_stochastic_interpolation_torch.device import resolve_device
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
 from flowtrain_stochastic_interpolation_torch.models.unet_cond import UNet3DCond
@@ -95,6 +100,24 @@ def steps_per_epoch(config: ExperimentConfig) -> int:
     return max(config.data.epoch_size // config.data.batch_size, 1)
 
 
+def device_batches(dataset, batch_size: int, epoch: int, device: torch.device):
+    """The epoch's batches on ``device``. A host-side dataset's batches are made
+    on a background thread two ahead of the consumer (JAX's ``prefetch(depth=2)``)
+    and copied through pinned memory without blocking; a device-side
+    dataset's are read inline, as in JAX."""
+    if not getattr(dataset, "host_side", True):
+        return dataset.batches(batch_size, epoch=epoch)
+
+    def put_all():
+        for b in dataset.batches(batch_size, epoch=epoch):
+            b = torch.as_tensor(b)
+            if device.type == "cuda":
+                b = b.pin_memory()
+            yield b.to(device, non_blocking=True)
+
+    return prefetch(put_all(), depth=2)
+
+
 def train(
     config: ExperimentConfig,
     *,
@@ -139,13 +162,13 @@ def train(
     t_after_first = None
     step = start_step
     epoch = start_step // per_epoch
-    batch_iter = dataset.batches(batch_size, epoch=epoch)
+    batch_iter = device_batches(dataset, batch_size, epoch, dev)
     while step < start_step + total_steps:
         try:
             batch = next(batch_iter)
         except StopIteration:
             epoch += 1
-            batch_iter = dataset.batches(batch_size, epoch=epoch)
+            batch_iter = device_batches(dataset, batch_size, epoch, dev)
             continue
         state, metrics = train_step(state, batch, generator(dev, noise_seed, state.step))
         step += 1
@@ -195,7 +218,9 @@ def _pretrain_smoke(config, dataset, callback, state, checkpoint_dir) -> None:
     prints it and goes on), since it is a fault of the device path, not of a
     picture."""
     out_dir = checkpoint_dir or "."
-    batch = next(dataset.batches(min(config.data.batch_size, 2), epoch=0)).cpu().numpy()
+    # a tensor on the device, or (a host-side source) a numpy array
+    batch = torch.as_tensor(next(dataset.batches(min(config.data.batch_size, 2), epoch=0)))
+    batch = batch.cpu().numpy()
     try:
         from flowtrain_stochastic_interpolation_torch.utils.plotting import plot_2d_slices
 

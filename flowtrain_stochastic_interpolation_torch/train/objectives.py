@@ -14,7 +14,9 @@ Port of ``flowtrain_stochastic_interpolation_tpu/train/objectives.py``:
 
 The random draws come from a ``torch.Generator`` and are not the JAX
 package's; a caller may pass its own ``draws`` (a test hands both sides the
-same tensors).
+same tensors). ``objective_dtype`` (bf16 for the 128³ memory form) is the
+storage dtype of the drawn and interpolated volumes; T stays f32 and the loss
+reduces in f32.
 """
 
 from __future__ import annotations
@@ -36,11 +38,17 @@ def _rel_mse(target: torch.Tensor, pred: torch.Tensor, eps: float = 0.0) -> torc
 
 
 def _draw_common(generator: torch.Generator, batch: torch.Tensor, table: torch.Tensor,
-                 time_range: Tuple[float, float], x1_noise: float):
-    """Draw ``(X1_clean, X1, X0, T)``: the volumes in the table's dtype, T in f32."""
+                 time_range: Tuple[float, float], x1_noise: float,
+                 dtype: Optional[torch.dtype] = None):
+    """Draw ``(X1_clean, X1, X0, T)``: the volumes in ``dtype`` (the table's when
+    None), T in f32."""
     x1_clean = embed(batch, table)  # [B, X, Y, Z, E]
+    if dtype is not None:
+        x1_clean = x1_clean.to(dtype)
     kw = dict(generator=generator, device=x1_clean.device, dtype=x1_clean.dtype)
-    x1 = x1_clean + x1_noise * torch.randn(x1_clean.shape, **kw)
+    # the noise scale in the volumes' dtype first, as JAX's asarray(x1_noise, dtype)
+    noise_scale = torch.tensor(x1_noise, dtype=x1_clean.dtype, device=x1_clean.device)
+    x1 = x1_clean + noise_scale * torch.randn(x1_clean.shape, **kw)
     x0 = torch.randn(x1.shape, **kw)
     lo, hi = time_range
     t = lo + (hi - lo) * torch.rand(x1.shape[0], generator=generator, device=x1.device,
@@ -58,6 +66,7 @@ def unconditional_loss(
     time_range: Tuple[float, float],
     x1_noise: float = 1e-3,
     draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    objective_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Relative-MSE flow objective of the categorical ``batch`` ``[B, X, Y, Z]``.
 
@@ -65,7 +74,8 @@ def unconditional_loss(
     the model's dropout masks when the model is in training.
     """
     if draws is None:
-        _, x1, x0, t = _draw_common(generator, batch, table, time_range, x1_noise)
+        _, x1, x0, t = _draw_common(generator, batch, table, time_range, x1_noise,
+                                    objective_dtype)
     else:
         x1, x0, t = draws
     xt, vt = interpolant.flow_objective(t, x0, x1)
@@ -85,6 +95,7 @@ def conditional_loss(
     x1_noise: float = 1e-4,
     lambda_reconstruct: float = 1.0,
     draws: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    objective_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Flow loss plus the weighted straight-line reconstruction loss of the
     categorical ``batch`` ``[B, X, Y, Z]`` for a conditional UNet.
@@ -97,12 +108,15 @@ def conditional_loss(
     """
     if draws is None:
         mask = make_combined_mask(generator, batch)
-        x1_clean, x1, x0, t = _draw_common(generator, batch, table, time_range, x1_noise)
+        x1_clean, x1, x0, t = _draw_common(generator, batch, table, time_range, x1_noise,
+                                           objective_dtype)
     else:
         mask, x1, x0, t = draws
         x1_clean = embed(batch, table)
+        if objective_dtype is not None:
+            x1_clean = x1_clean.to(objective_dtype)
     mask_f = mask[..., None].to(torch.float32)  # over the embedding channels
-    atb = x1_clean * mask_f  # observed before the X1 noise
+    atb = x1_clean * mask_f.to(x1_clean.dtype)  # observed before the X1 noise
     xt, vt = interpolant.flow_objective(t, x0, x1)
     v_hat = model(xt, atb, t, generator)
     flow_loss = _rel_mse(vt, v_hat, eps=1e-6)

@@ -22,6 +22,12 @@ parameter list. The EMA shadow is updated on every micro-step.
 step, the params, the optimiser's counters and moments, the EMA shadow and the
 constants) to and from ``torch.save``: what the JAX package's orbax
 checkpoints hold. ``with_ema_applied`` is the JAX state's method of that name.
+
+The model's buffers (a RandomFourier time embedding's frozen features: the
+JAX ``constants["model"]`` collection) ride in ``constants`` under the prefix
+``model.``, as the model's own tensors: a checkpoint saves and restores them,
+and neither the optimiser nor the EMA, which take the parameters only, ever
+touches them.
 """
 
 from __future__ import annotations
@@ -47,6 +53,9 @@ class OptState:
     nu: List[torch.Tensor] = field(default_factory=list)    # Adam's second moment
 
 
+MODEL_CONSTANTS = "model."
+
+
 @dataclass
 class TrainState:
     """Everything a training step mutates. ``params`` are the model's own
@@ -54,7 +63,7 @@ class TrainState:
 
     step: int                                  # global micro-step counter
     params: Dict[str, torch.Tensor]
-    constants: Dict[str, torch.Tensor]         # the embedding table
+    constants: Dict[str, torch.Tensor]         # the embedding table, the model's buffers
     opt_state: OptState
     ema_params: Optional[Dict[str, torch.Tensor]]  # None when EMA is off
 
@@ -64,6 +73,17 @@ class TrainState:
         if self.ema_params is None:
             return self
         return dataclasses.replace(self, params=self.ema_params)
+
+    def model_buffers(self) -> Dict[str, torch.Tensor]:
+        """The model's buffers, by their names in the model."""
+        n = len(MODEL_CONSTANTS)
+        return {k[n:]: v for k, v in self.constants.items() if k.startswith(MODEL_CONSTANTS)}
+
+    def model_state_dict(self, use_ema: bool = False) -> Dict[str, torch.Tensor]:
+        """A ``state_dict`` for the model: the params (the EMA shadow with
+        ``use_ema`` where EMA is on) and the buffers."""
+        params = self.with_ema_applied().params if use_ema else self.params
+        return {**params, **self.model_buffers()}
 
     def state_dict(self) -> Dict[str, Any]:
         """Everything the state holds, as tensors, ints, lists and dicts."""
@@ -189,8 +209,12 @@ def make_optimizer(cfg: TrainingConfig, updates_per_epoch: int) -> Optimizer:
 
 def init_state(model: nn.Module, constants: Dict[str, torch.Tensor], tx: Optimizer,
                ema: EMAConfig) -> TrainState:
+    """The state of ``model`` at step 0: its parameters, ``constants`` with the
+    model's buffers added, the optimiser's state and the EMA shadow."""
     params = dict(model.named_parameters())
     shadow = ({k: p.detach().clone() for k, p in params.items()} if ema.enabled else None)
+    constants = {**constants,
+                 **{MODEL_CONSTANTS + k: b for k, b in model.named_buffers()}}
     return TrainState(step=0, params=params, constants=constants,
                       opt_state=tx.init(list(params.values())), ema_params=shadow)
 

@@ -10,8 +10,12 @@ metrics are the loss's (``train_loss``; the conditional loss adds
 ``flow_loss`` and ``reconstruct_loss``) and ``grad_norm`` (the micro-step's
 own gradient, before accumulation and clipping), as device tensors.
 
-Not ported yet: ``remat`` and the bf16 objective (``objective_dtype``); asking
-for them raises ``NotImplementedError``.
+The 128³ memory forms: ``training.remat`` runs the model's whole forward
+under one activation checkpoint (:func:`models.remat.checkpoint`, which
+replays the dropout generator's draws in the recompute) with
+``training.remat_policy`` (``"dots"`` or ``"nothing"``) and, for the
+conditional model, ``training.remat_save_atb``; ``training.objective_dtype =
+"bfloat16"`` stores the drawn and interpolated volumes in bf16.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch import nn
 
 from flowtrain_stochastic_interpolation_torch.config import ExperimentConfig
 from flowtrain_stochastic_interpolation_torch.interpolants import LinearInterpolant
+from flowtrain_stochastic_interpolation_torch.models.remat import checkpoint
 from flowtrain_stochastic_interpolation_torch.train.objectives import (
     conditional_loss,
     unconditional_loss,
@@ -36,21 +41,36 @@ from flowtrain_stochastic_interpolation_torch.train.state import (
 )
 
 
-def _check_ported(config: ExperimentConfig) -> None:
+OBJECTIVE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def rematerialised(model: nn.Module, config: ExperimentConfig):
+    """``model`` called under one activation checkpoint of ``config.training``'s
+    policy (JAX's ``jax.checkpoint`` with ``remat_policy``) while gradients are
+    on; the model itself without ``training.remat``."""
     tc = config.training
-    if tc.remat or tc.objective_dtype != "float32":
-        raise NotImplementedError(
-            "remat and the bf16 objective are not ported "
-            "(ROADMAP Queue 1, the 128³ memory forms)"
-        )
+    if not tc.remat:
+        return model
+    save_atb = config.model.conditional and tc.remat_save_atb
+
+    def forward(*args):
+        *inputs, generator = args
+        if not torch.is_grad_enabled():
+            return model(*inputs, generator)
+        return checkpoint(lambda *a: model(*a), *inputs, generator=generator,
+                          remat_policy=tc.remat_policy, save_atb=save_atb)
+
+    return forward
 
 
 def _loss(config: ExperimentConfig):
     """``loss(model, batch, table, generator) -> (loss, metrics)`` of the config."""
-    _check_ported(config)
     tc = config.training
+    if tc.objective_dtype not in OBJECTIVE_DTYPES:
+        raise ValueError(f"unknown objective_dtype {tc.objective_dtype!r}; "
+                         f"options: {tuple(OBJECTIVE_DTYPES)}")
     kwargs = dict(interpolant=LinearInterpolant(one_sided=True), time_range=tc.time_range,
-                  x1_noise=tc.x1_noise)
+                  x1_noise=tc.x1_noise, objective_dtype=OBJECTIVE_DTYPES[tc.objective_dtype])
     if config.model.conditional:
         return functools.partial(conditional_loss, lambda_reconstruct=tc.lambda_reconstruct,
                                  **kwargs)
@@ -65,6 +85,7 @@ def make_train_step(model: nn.Module, tx: Optimizer, config: ExperimentConfig):
     the dropout masks.
     """
     loss_fn = _loss(config)
+    forward = rematerialised(model, config)
     names = [name for name, _ in model.named_parameters()]
 
     def train_step(state: TrainState, batch: torch.Tensor,
@@ -73,7 +94,7 @@ def make_train_step(model: nn.Module, tx: Optimizer, config: ExperimentConfig):
         params = [state.params[k] for k in names]
         for p in params:
             p.grad = None
-        loss, metrics = loss_fn(model, batch, state.constants["embedding"], generator)
+        loss, metrics = loss_fn(forward, batch, state.constants["embedding"], generator)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         metrics = {k: v.detach() for k, v in metrics.items()}

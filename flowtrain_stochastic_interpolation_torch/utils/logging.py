@@ -3,7 +3,7 @@
 The CSV part of ``flowtrain_stochastic_interpolation_tpu/utils/logging.py``
 (which imports no JAX), copied so that nothing here imports the JAX package:
 rows go to ``metrics.csv``, whose header is widened in place, atomically,
-when a new metric appears. wandb is not ported (ROADMAP Queue 1 item 14).
+when a new metric appears. wandb is left out on purpose (ROADMAP Queue 1).
 """
 
 from __future__ import annotations

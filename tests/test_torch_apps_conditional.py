@@ -102,7 +102,8 @@ def test_inference_experiments_all_stages_on_the_cpu(tmp_path, method, capsys):
     exp_app.main(argv + ["--stage", "create-data"])
     exp_app.main(argv + ["--stage", "populate"])
     np.testing.assert_array_equal(np.load(tmp_path / "scenario_1" / "sol_2.npy"), before)
-    with pytest.raises(NotImplementedError, match="ckpt"):
+    # a .ckpt is read now (tests/test_torch_lightning.py); a missing one is an error
+    with pytest.raises(FileNotFoundError, match="w.ckpt"):
         exp_app.main(argv + ["--stage", "populate", "--checkpoint-path", "w.ckpt"])
 
 

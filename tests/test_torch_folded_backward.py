@@ -120,20 +120,27 @@ def test_default_backward_is_closed_form_bf16():
 
 @pytest.mark.parametrize("backward", ["chunked", "autodiff"])
 def test_unported_backwards_raise(backward):
-    inputs, _ = _arrays(seed=1, batch=1, n=300)
-    tensors = [torch.from_numpy(a).requires_grad_() for a in inputs]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        la.linear_attention_folded(*tensors, heads=HEADS, backward=backward)
-    with torch.no_grad():  # the forward alone runs whatever the backward
-        out = la.linear_attention_folded(*tensors, heads=HEADS, backward=backward)
-    assert out.shape == (1, 300, HD)
+    """Both are ported now (tests/test_torch_memory_forms.py holds them against
+    JAX): their gradients through linear_attention_folded are the f32 closed
+    form's, to f32 rounding."""
+    inputs, dout = _arrays(seed=1, batch=1, n=300)
+    grads = []
+    for form in (backward, "closed_form"):
+        tensors = [torch.from_numpy(a).requires_grad_() for a in inputs]
+        out = la.linear_attention_folded(*tensors, heads=HEADS, backward=form)
+        assert out.shape == (1, 300, HD)
+        out.backward(torch.from_numpy(dout))
+        grads.append([t.grad for t in tensors])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 def test_backward_at_the_chunked_row_count_raises():
+    """At 2^20 rows per item the closed forms hand over to the chunked one, as
+    in JAX, instead of raising."""
     big = la.CHUNKED_BWD_MIN_ROWS
-    q = torch.zeros(1, big, HD, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="2\\^20"):
-        la.linear_attention_folded(q, q, q, torch.zeros(4, HD), torch.zeros(4, HD), heads=HEADS)
+    assert la.backward_form(None, big) == la.backward_form("closed_form", big) == "chunked"
+    assert la.backward_form(None, big - 1) == "closed_form_bf16"
 
 
 def test_unknown_backward_is_a_value_error():

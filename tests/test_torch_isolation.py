@@ -80,6 +80,31 @@ for kw in ({{"method": "heun"}}, {{"frame_dispatch": True}}, {{"method": "sde"}}
     assert sampler(x, x, **gen)["decoded"].shape == (1, 8, 8, 8)
 traj, nfe = solve_ode_adaptive(lambda y, t: -y, torch.ones(1, 2), n_frames=3)
 assert nfe > 0 and traj.shape == (3, 1, 2)
+# the thirteenth slice: the data sources, the remat helper, and the writer of
+# reference-layout checkpoints that chip_smoke.py loads by its path
+from {PACKAGE}.data import geogen, native, prefetch
+from {PACKAGE}.data.geogen import GeoGenDataset, get_dataset
+from {PACKAGE}.data.native import NativeGeoDataset, generate_batch
+from {PACKAGE}.models import remat
+from {PACKAGE}.models.persistence import convert_lightning_module, variables_to_jax
+import importlib.util, tempfile, os
+spec = importlib.util.spec_from_file_location("torch_lightning_layout",
+                                              "tests/torch_lightning_layout.py")
+layout = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(layout)
+from {PACKAGE}.train.loop import init_model_variables
+tiny = tiny_test()
+tiny = tiny.__class__(**{{**tiny.__dict__, "model": tiny.model.__class__(
+    **{{**tiny.model.__dict__, "time_learned_emb": False}})}})
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "tiny.ckpt")
+    layout.write_checkpoint(path, variables_to_jax(init_model_variables(tiny, device="cpu")),
+                            torch.eye(15).numpy(), {{"dim_mults": [1, 2], "time_learned_emb": False}})
+    import contextlib, io
+    with contextlib.redirect_stdout(io.StringIO()):
+        loaded, table = unconditional.load_weights(tiny, path, device="cpu")
+    assert sorted(dict(loaded.named_buffers())) == ["time_mlp.embed.freqs", "time_mlp.embed.phases"]
+assert list(prefetch.prefetch(iter(range(3)))) == [0, 1, 2]
 assert not any(n.split(".")[0] in {POISONED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), "modules")
 """

@@ -280,8 +280,19 @@ def test_dropout_is_off_in_eval_and_the_model_matches_one_without_it():
 
 
 def test_remat_blocks_is_not_ported():
-    with pytest.raises(NotImplementedError, match="remat_blocks"):
-        build_model(_tiny(remat_blocks=True), device="cpu")
+    """remat_blocks is ported now: with dropout on and gradients on, its forward
+    is the plain model's on the same generator (its gradients:
+    tests/test_torch_memory_forms.py)."""
+    remat = build_model(_tiny(remat_blocks=True, dropout=0.5), device="cpu")
+    plain = build_model(_tiny(dropout=0.5), device="cpu")
+    _seeded(plain)
+    remat.load_state_dict(plain.state_dict())
+    remat.train()
+    plain.train()
+    x = torch.randn(2, 8, 8, 8, 15, generator=torch.Generator().manual_seed(3))
+    t = torch.tensor([0.2, 0.7])
+    torch.testing.assert_close(remat(x, t, torch.Generator().manual_seed(4)),
+                               plain(x, t, torch.Generator().manual_seed(4)), rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------

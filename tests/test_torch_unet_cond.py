@@ -159,11 +159,14 @@ def test_from_config_defaults_to_cuda_and_raises_for_what_is_not_ported(monkeypa
     with pytest.raises(RuntimeError, match="no CUDA device"):
         UNet3DCond.from_config(mc)
     tiny = port_config.tiny_test(conditional=True).model
+    # every constructor option is ported now (tests/test_torch_unet_options.py
+    # holds each against JAX): each builds and runs
     for change in (dict(self_condition=True), dict(time_sin_pos=True),
                    dict(time_learned_emb=False), dict(attn_enabled=False),
                    dict(remat_blocks=True)):
-        with pytest.raises(NotImplementedError):
-            UNet3DCond.from_config(dataclasses.replace(tiny, **change), device="cpu")
+        built = UNet3DCond.from_config(dataclasses.replace(tiny, **change), device="cpu")
+        x = torch.zeros(1, 8, 8, 8, 15)
+        assert built(x, x, torch.zeros(1)).shape == x.shape
     with pytest.raises(ValueError, match="unconditional"):
         UNet3DCond.from_config(port_config.tiny_test().model, device="cpu")
     with pytest.raises(ValueError, match="variant"):
