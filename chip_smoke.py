@@ -214,10 +214,35 @@ Phases, each printed on one flushed line with the seconds since start:
       and its recompute), with ms and peak memory; the gradients of a
       ``remat_blocks`` step against the plain step's from the same weights,
       batch and dropout generator (beside two plain steps' difference); one
-      128³ b1 sample from the trained release, RK4 16 frames x 2 substeps.
+      128³ b1 sample from the trained release, RK4 16 frames x 2 substeps;
+12. parallelism over ``torch.distributed``, ranks started by
+    ``parallel.launch.spawn`` (start method ``spawn``; a rank that raises or is
+    not done within ``RANK_DEADLINE_S`` fails the run). A part with more ranks
+    than the machine has cards runs them all on card 0 over gloo, their
+    collectives staged through pinned host memory; otherwise NCCL, a card a
+    rank. Each part prints its backend, ranks and cards.
+   a. data parallel, the flagship at 64³ (EMA on, no dropout) on 2 ranks, b4 each
+      x accumulation 2, 3 micro-steps: the first micro-step's loss and
+      gradient against one process at b8 on the same batch and draws; each
+      rank's K1 / K2 launches (6 + 6 a micro-step), micro-step times, the flat
+      gradient all-reduce's time and peak memory; parameters and EMA bitwise
+      equal across ranks (hashes);
+   b. the trained release at 128³ b1 with X over 4 ranks: one velocity
+      evaluation against the unsharded forward (bf16, and at f32 compute
+      against the unsharded einsum path), the halo and collective bytes per
+      evaluation; ``make_spatial_sampler`` RK4 over the recipe's frames (fewer
+      where, at one evaluation's time, they would pass
+      ``SPATIAL_SAMPLE_BUDGET_S``) against ``make_sampler`` from the same x0;
+      peak memory per rank;
+   c. 2 sharded train steps of the flagship at 128³ b1 (``make_spatial_train_step``):
+      the first loss against the unsharded forward on draws rebuilt shard by
+      shard, peak memory per rank, replicas bitwise equal;
+   d. on two cards or more: the app with ``--train-devices 0,1`` for 4
+      micro-steps, and K1, K2, K4a and K4b on a card that is not the current
+      one against their plain versions; with one card, "not run: one card".
 
 The launch counts are set to 0 just before each main-path run (phases 4a-4c,
-5, 5b, 7, 8, 9, 10 and 11) and read just after it. Then one JSON line per kernel (``{"kernels":
+5, 5b, 7, 8, 9, 10, 11 and 12, in each rank) and read just after it. Then one JSON line per kernel (``{"kernels":
 [...]}``), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
 """
@@ -247,7 +272,11 @@ import torch.nn.functional as F
 from flowtrain_stochastic_interpolation_torch.apps import conditional as cond_app
 from flowtrain_stochastic_interpolation_torch.apps import inference_experiments as exp_app
 from flowtrain_stochastic_interpolation_torch.apps import unconditional as app
-from flowtrain_stochastic_interpolation_torch.config import conditional_64, unconditional_64
+from flowtrain_stochastic_interpolation_torch.config import (
+    EMAConfig,
+    conditional_64,
+    unconditional_64,
+)
 from flowtrain_stochastic_interpolation_torch.data import geogen as geogen_data
 from flowtrain_stochastic_interpolation_torch.data import native as native_data
 from flowtrain_stochastic_interpolation_torch.data.synthetic import (
@@ -261,6 +290,7 @@ from flowtrain_stochastic_interpolation_torch.inference import (
     sample_conditional,
     sample_unconditional,
 )
+from flowtrain_stochastic_interpolation_torch.interpolants import LinearInterpolant
 from flowtrain_stochastic_interpolation_torch.models.attention import Attention, LinearAttention
 from flowtrain_stochastic_interpolation_torch.models.persistence import (
     load_release_weights,
@@ -269,6 +299,7 @@ from flowtrain_stochastic_interpolation_torch.models.persistence import (
     variables_to_jax,
 )
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
+from flowtrain_stochastic_interpolation_torch.inference import make_spatial_sampler
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build, ensemble
 from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
 from flowtrain_stochastic_interpolation_torch.ops import gemm_probes as gp
@@ -281,6 +312,8 @@ from flowtrain_stochastic_interpolation_torch.tools import bench_folded
 from flowtrain_stochastic_interpolation_torch.tools import bench_gemm as bg
 from flowtrain_stochastic_interpolation_torch.tools import bench_mma_shapes as bms
 from flowtrain_stochastic_interpolation_torch.tools import bench_tap_conv as btc
+from flowtrain_stochastic_interpolation_torch.parallel import collectives, create_mesh, shard_batch
+from flowtrain_stochastic_interpolation_torch.parallel.launch import spawn
 from flowtrain_stochastic_interpolation_torch.solvers import solve_ode_final
 from flowtrain_stochastic_interpolation_torch.train import loop as train_loop
 from flowtrain_stochastic_interpolation_torch.train import objectives
@@ -292,8 +325,15 @@ from flowtrain_stochastic_interpolation_torch.train.loop import (
     init_model_variables,
     init_train_state,
 )
+from flowtrain_stochastic_interpolation_torch.train.shard_map_step import (
+    apply_update,
+    make_spatial_train_step,
+    spatial_draws,
+)
 from flowtrain_stochastic_interpolation_torch.train.steps import make_eval_loss, make_train_step
 from flowtrain_stochastic_interpolation_torch.utils.msgpack_tree import Bfloat16
+from flowtrain_stochastic_interpolation_torch.utils.rng import fold_seed
+from flowtrain_stochastic_interpolation_torch.utils.rng import generator as folded_generator
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, bf16 tensor-core rate
 # and the f32 rate of the FP32 cores (K4a and K4b compute in f32 there)
@@ -480,6 +520,33 @@ PER_FORWARD_128 = 8
 # resize's backwards sum with atomics in no fixed order, so two plain steps already
 # differ (printed beside it); both stay within the bf16 backward's tolerance
 REMAT_GRAD_REL_TOL = BACKWARD_REL_TOL
+# phase 12 (the fourteenth slice): parallelism over torch.distributed. 12a: the flagship
+# data-parallel on 2 ranks, b4 each x accumulation 2, 3 micro-steps, no dropout (its masks
+# are draws that a b8 and two b4 runs cannot share); 12b and 12c: the flagship at 128³ b1
+# with X sharded over 4 ranks. With fewer cards than ranks, the ranks share card 0 over
+# gloo, their collectives staged through pinned host memory.
+DP_RANKS, DP_MICRO_BATCH, DP_ACCUM, DP_STEPS = 2, 4, 2, 3
+SPATIAL_RANKS, SPATIAL_STEPS = 4, 2
+PHASE12_SEED = 1200
+RANK_DEADLINE_S = 420.0
+# 12a against one process at b8 on the same batch and draws: cuDNN's convs at other batch
+# shapes round other bf16 partial sums; the gradients as the bf16 backward's tolerance
+DP_LOSS_REL_TOL = 1e-2
+DP_GRAD_REL_TOL = BACKWARD_REL_TOL
+# 12b: the sharded bf16 forward against the unsharded one (relative L2); the unsharded one
+# runs K1 and K2, which round p and ctx to bf16, and the sharded linear attention (JAX's)
+# computes in f32: the bf16 forward's tolerance. At f32 compute, against the unsharded
+# einsum path: f32 rounding
+SPATIAL_BF16_REL_TOL = FORWARD_REL_TOL
+SPATIAL_F32_REL_TOL = 1e-4
+# the RK4 decode against the unsharded sampler's from the same x0: the share of voxels
+# that agree (the two velocity fields differ by the roundings above at every evaluation)
+SPATIAL_DECODE_AGREEMENT = 0.9
+# the sample's budget: fewer than the recipe's 16 frames where one evaluation's time says
+# that they would pass it, so that phase 12 stays near 150 s (the rest of it takes about 65)
+SPATIAL_SAMPLE_BUDGET_S = 70.0
+# 12c: the first sharded step's loss against the unsharded forward's on the same draws
+SPATIAL_LOSS_REL_TOL = 1e-2
 FOLDED = ("folded_context", "folded_project")
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
@@ -2644,7 +2711,378 @@ def phase_128(smi: str) -> tuple:
           and result.decoded.shape == (1, *[SIDE_128] * 3), f"11d sample: launches {counts}")
     del model, result
     torch.cuda.empty_cache()
-    return launches, rows, worst
+    return launches, rows, worst, steps["plain"]["peak_gib"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: data and spatial parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+def rank_layout(n_ranks: int) -> tuple:
+    """``(backend, cards)``: NCCL with a card per rank where the machine has that
+    many, else gloo with every rank on card 0."""
+    if torch.cuda.device_count() >= n_ranks:
+        return "nccl", list(range(n_ranks))
+    return "gloo", [0] * n_ranks
+
+
+def describe_layout(backend: str, cards: list) -> str:
+    staged = collectives.stages(backend, torch.device("cuda"))
+    return (f"{len(cards)} ranks on cards {cards}, backend {backend}"
+            + (" (staged through pinned host memory)" if staged else " (no staging)"))
+
+
+def tensors_hash(tensors) -> str:
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def exact_f32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def dp_config():
+    """The flagship with the EMA shadow on (the recipe has it off), so that the
+    replicas' shadows are compared too, and no dropout."""
+    base = with_model(unconditional_64(), dropout=0.0)
+    return dataclasses.replace(
+        base, ema=EMAConfig(), data=dataclasses.replace(base.data, batch_size=DP_RANKS * DP_MICRO_BATCH),
+        training=dataclasses.replace(base.training, accumulate_grad_batches=DP_ACCUM))
+
+
+def dp_inputs(cfg, table: torch.Tensor) -> tuple:
+    """12a's global batch and its draws ``(X1, X0, T)``, made on the card from
+    ``PHASE12_SEED``: every rank and the one-process step make the same."""
+    gen = torch.Generator(device="cuda").manual_seed(PHASE12_SEED)
+    batch = synthetic_geology_batch(gen, cfg.data.batch_size, cfg.data.shape)
+    _, x1, x0, t = objectives._draw_common(gen, batch, table, cfg.training.time_range,
+                                           cfg.training.x1_noise)
+    return batch, (x1, x0, t)
+
+
+def dp_rank(rank: int, cfg) -> dict:
+    """One rank of 12a: DP_STEPS data-parallel micro-steps of its block of the global
+    batch, the first on the fed draws; what the parent checks."""
+    exact_f32()
+    mesh = create_mesh()
+    model, tx, state = init_train_state(cfg, device="cuda", mesh=mesh)
+    table = state.constants["embedding"]
+    batch, draws = dp_inputs(cfg, table)
+    local, local_draws = shard_batch(batch, mesh), tuple(shard_batch(d, mesh) for d in draws)
+    del batch, draws
+    loss_and_grads = train_steps.make_data_parallel_loss_and_grads(model, cfg, mesh)
+    params = [state.params[k] for k, _ in model.named_parameters()]
+    out = {"step_ms": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for s in range(DP_STEPS):
+        start = time.perf_counter()
+        gen = folded_generator("cuda", cfg.training.seed + 17, state.step, mesh.di)
+        metrics, grads = loss_and_grads(state, local, gen, local_draws if s == 0 else None)
+        if s == 0:
+            out["loss"] = float(metrics["train_loss"])
+            if rank == 0:
+                out["grads"] = torch.cat([g.float().reshape(-1) for g in grads]).cpu()
+        apply_update(state, tx, cfg, params, grads, metrics)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - start) * 1e3)
+    out["counts"] = read_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # the all-reduce of one micro-step's flat buffer alone, as the step issues it
+    flat = torch.cat([p.detach().float().reshape(-1) for p in params])
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        collectives.all_reduce_sum(flat, mesh.world_group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    out["all_reduce_ms"] = statistics.median(times)
+    out["all_reduce_mib"] = flat.numel() * 4 / 2**20
+    out["params"] = tensors_hash(params)
+    out["ema"] = tensors_hash(state.ema_params.values())
+    out["card"] = torch.cuda.current_device()
+    return out
+
+
+def phase_data_parallel(smi: str) -> dict:
+    """12a: the flagship data-parallel over 2 ranks against one process at b8."""
+    cfg = dp_config()
+    backend, cards = rank_layout(DP_RANKS)
+    say("parallel", f"12a data parallel, flagship 64³: {describe_layout(backend, cards)}; "
+        f"b{DP_MICRO_BATCH} a rank x accumulation {DP_ACCUM}, {DP_STEPS} micro-steps, dropout 0, "
+        "EMA on")
+    # the one-process b8 micro-step on the same batch and draws
+    model, _, state = init_train_state(cfg, device="cuda")
+    model.train()
+    batch, draws = dp_inputs(cfg, state.constants["embedding"])
+    loss, _ = train_steps._loss(cfg)(model, batch, state.constants["embedding"],
+                                     torch.Generator(device="cuda").manual_seed(0), draws=draws)
+    loss.backward()
+    want_loss = float(loss.detach())
+    want = torch.cat([p.grad.float().reshape(-1) for p in model.parameters()]).cpu()
+    del model, state, batch, draws, loss
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    ranks = spawn(dp_rank, DP_RANKS, (cfg,), backend=backend, devices=cards,
+                  deadline_s=RANK_DEADLINE_S)
+    wall = time.perf_counter() - start
+    loss_err = abs(ranks[0]["loss"] - want_loss) / abs(want_loss)
+    grad_err = rel_l2(ranks[0]["grads"], want)
+    say("parallel", f"12a first micro-step: loss {ranks[0]['loss']:.6f} on 2 ranks, "
+        f"{want_loss:.6f} in one process at b8 (relative {loss_err:.2e}, limit "
+        f"{DP_LOSS_REL_TOL:g}); gradient relative L2 {grad_err:.3e} (limit {DP_GRAD_REL_TOL:g})")
+    for r, res in enumerate(ranks):
+        say("parallel", f"12a rank {r} (card {res['card']}): launches {res['counts']}; "
+            f"micro-steps {', '.join(f'{t:.1f}' for t in res['step_ms'])} ms; flat gradient "
+            f"all-reduce ({res['all_reduce_mib']:.1f} MiB) {res['all_reduce_ms']:.2f} ms; peak "
+            f"{res['peak_gib']:.2f} GiB; params {res['params']}, EMA {res['ema']}")
+    shared = " (ranks share one card: times show correctness, not scaling)" if len(
+        set(cards)) < len(cards) else ""
+    say("parallel", f"12a {wall:.1f} s with the ranks' start; {smi}{shared}")
+    check(loss_err <= DP_LOSS_REL_TOL and grad_err <= DP_GRAD_REL_TOL,
+          f"12a: the data-parallel step is off the one-process step (loss {loss_err:.2e}, "
+          f"gradient {grad_err:.2e})")
+    check(all(r["params"] == ranks[0]["params"] and r["ema"] == ranks[0]["ema"] for r in ranks),
+          "12a: the replicas' parameters or EMA differ")
+    per_rank = dict.fromkeys(FOLDED, 6 * DP_STEPS)
+    for r, res in enumerate(ranks):
+        check(all(res["counts"][name] == per_rank.get(name, 0) for name in KERNELS),
+              f"12a rank {r}: launches {res['counts']}, expected {per_rank}")
+    return {f"12a data parallel rank {r}": res["counts"] for r, res in enumerate(ranks)}
+
+
+def spatial_train_config():
+    """The flagship at 128³ b1, updating every step, with the EMA shadow on and no
+    dropout (as 12a's)."""
+    base = with_model(unconditional_64(), dropout=0.0)
+    return dataclasses.replace(
+        base, ema=EMAConfig(), data=dataclasses.replace(base.data, shape=(SIDE_128,) * 3, batch_size=1),
+        training=dataclasses.replace(base.training, accumulate_grad_batches=1))
+
+
+def spatial_inputs(release, cfg) -> tuple:
+    """12b's x0 ``[1, 128³, E]`` (f32) and 12c's labels ``[1, 128³]``, on the card
+    from ``PHASE12_SEED``."""
+    gen = torch.Generator(device="cuda").manual_seed(PHASE12_SEED)
+    x0 = initial_noise(gen, 1, (SIDE_128,) * 3, release.data.embedding_dim, torch.float32,
+                       torch.device("cuda"))
+    labels = synthetic_geology_batch(gen, 1, cfg.data.shape)
+    return x0, labels
+
+
+def release_sharded(release, group, dtype=None):
+    """The trained release (EMA weights) in a model X-sharded over ``group``, or
+    unsharded with None; ``dtype`` overrides the compute dtype."""
+    cfg = release if dtype is None else with_model(release, dtype=dtype)
+    tree, _, _ = load_release_weights(str(RELEASE_DIR))
+    model = build_model(cfg, device="cuda", spatial_group=group)
+    model.load_state_dict(state_dict_from_release(tree, model, use_ema=True))
+    return model.eval()
+
+
+def spatial_rank(rank: int) -> dict:
+    """One rank of 12b and 12c (4 spatial ranks): the sharded release's velocity
+    (bf16 and f32 compute) and RK4 sample at 128³, then SPATIAL_STEPS sharded
+    train steps of the flagship at 128³ b1."""
+    exact_f32()
+    mesh = create_mesh(1, SPATIAL_RANKS)
+    release, cfg = unconditional_64(), spatial_train_config()
+    x0, labels = spatial_inputs(release, cfg)
+    x0, labels = shard_batch(x0, mesh).contiguous(), shard_batch(labels, mesh).contiguous()
+    table = torch.from_numpy(simplex_embedding(release.data.num_categories,
+                                               release.data.embedding_dim)).cuda()
+    t = torch.full((1,), 0.5, device="cuda")
+    out = {}
+    model = release_sharded(release, mesh.spatial_group)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model(x0, t)  # cuDNN's set-up
+        torch.cuda.synchronize()
+        collectives.reset_traffic()
+        reset_counts()
+        start = time.perf_counter()
+        v = model(x0, t)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - start
+        out["eval_counts"] = read_counts()
+        out["traffic"] = dict(collectives.traffic)
+        out["v"] = v.float().cpu()
+        f32 = release_sharded(release, mesh.spatial_group, dtype="float32")
+        out["v32"] = f32(x0, t).cpu()
+        del f32, v
+    # the frame count, the same on every rank: the slowest rank's evaluation sets it
+    per_eval = float(collectives.all_reduce_max(torch.tensor([eval_s], device="cuda"),
+                                                mesh.world_group))
+    ic = release.inference
+    per_frame = ic.substeps * 4
+    n_frames = max(2, min(ic.n_frames, 1 + int(SPATIAL_SAMPLE_BUDGET_S / (per_eval * per_frame))))
+    sampler = make_spatial_sampler(model, table, mesh, t0=ic.t0, tf=ic.tf, n_frames=n_frames,
+                                   substeps=ic.substeps, method=ic.method)
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    res = sampler(x0)
+    out["decoded"] = res["decoded"].cpu()
+    out.update(eval_s=eval_s, n_frames=n_frames, nfe=res["nfe"],
+               sample_s=time.perf_counter() - start, sample_counts=read_counts(),
+               sample_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model, sampler, res
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model, tx, state = init_train_state(cfg, device="cuda", mesh=mesh)
+    step = make_spatial_train_step(model, tx, cfg, mesh)
+    reset_counts()
+    out["losses"], out["step_s"] = [], []
+    for _ in range(SPATIAL_STEPS):
+        start = time.perf_counter()
+        state, metrics = step(state, labels, None, PHASE12_SEED)
+        out["losses"].append(float(metrics["train_loss"]))
+        out["step_s"].append(time.perf_counter() - start)
+    out.update(train_counts=read_counts(), train_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               params=tensors_hash(state.params.values()),
+               ema=tensors_hash(state.ema_params.values()), card=torch.cuda.current_device())
+    return out
+
+
+def phase_spatial(smi: str, peak_128=None) -> dict:
+    """12b and 12c: the flagship at 128³ with X sharded over 4 ranks, against the
+    unsharded model on the card; ``peak_128`` is 11d's unsharded plain
+    micro-step's peak (GiB), where that ran."""
+    backend, cards = rank_layout(SPATIAL_RANKS)
+    say("parallel", f"12b/12c spatial, flagship 128³ b1, X over {SPATIAL_RANKS} ranks: "
+        f"{describe_layout(backend, cards)}")
+    start = time.perf_counter()
+    ranks = spawn(spatial_rank, SPATIAL_RANKS, backend=backend, devices=cards,
+                  deadline_s=RANK_DEADLINE_S)
+    wall = time.perf_counter() - start
+    shared = " (ranks share one card: times show correctness, not scaling)" if len(
+        set(cards)) < len(cards) else ""
+    r0 = ranks[0]
+    n_frames = r0["n_frames"]
+    check(all(r["n_frames"] == n_frames for r in ranks), "12b: the ranks chose other frame counts")
+    cat = lambda key: torch.cat([r[key] for r in ranks], dim=1)
+
+    # the unsharded references on the card, from the same x0, weights and draws
+    release, cfg = unconditional_64(), spatial_train_config()
+    x0, labels = spatial_inputs(release, cfg)
+    t = torch.full((1,), 0.5, device="cuda")
+    model, table = release_model(release)
+    with torch.no_grad():
+        v_err = rel_l2(cat("v"), model(x0, t).float().cpu())
+        f32 = release_sharded(release, None, dtype="float32")
+        for m in f32.modules():
+            if isinstance(m, LinearAttention):
+                m.fused_folded = False  # the einsum path: no bf16 rounding of p and ctx
+        v32_err = rel_l2(cat("v32"), f32(x0, t).cpu())
+        del f32
+    ic = release.inference
+    want = make_sampler(model, table, t0=ic.t0, tf=ic.tf, n_frames=n_frames,
+                        substeps=ic.substeps, method=ic.method)(x0)["decoded"].cpu()
+    agree = (cat("decoded") == want).float().mean().item()
+    del model
+    torch.cuda.empty_cache()
+    plain, _, state = init_train_state(cfg, device="cuda")
+    plain.train()
+    table = state.constants["embedding"]
+    tc = cfg.training
+    seed = fold_seed(PHASE12_SEED, 0)
+    x_loc = SIDE_128 // SPATIAL_RANKS
+    parts = [spatial_draws(seed, labels[:, s * x_loc:(s + 1) * x_loc], table, tc.time_range,
+                           tc.x1_noise, 0, s) for s in range(SPATIAL_RANKS)]
+    _, x1, x0t = (torch.cat([p[i] for p in parts], dim=1) for i in range(3))
+    xt, vt = LinearInterpolant(one_sided=True).flow_objective(parts[0][3], x0t, x1)
+    with torch.no_grad():
+        v_hat = plain(xt, parts[0][3])
+        want_loss = float((v_hat.float() - vt).square().sum() / vt.square().sum())
+    del plain, state, parts, x1, x0t, xt, vt, v_hat
+    torch.cuda.empty_cache()
+    loss_err = abs(r0["losses"][0] - want_loss) / abs(want_loss)
+
+    mib = lambda n: n / 2**20
+    say("parallel", f"12b one velocity evaluation at t = 0.5: bf16 relative L2 {v_err:.3e} "
+        f"against the unsharded forward with K1 and K2 (limit {SPATIAL_BF16_REL_TOL:g}); f32 "
+        f"compute {v32_err:.3e} against the unsharded einsum path (limit "
+        f"{SPATIAL_F32_REL_TOL:g}); per rank and evaluation: ppermute (halos and ring) "
+        f"{mib(r0['traffic']['ppermute']):.2f} MiB, all-reduce "
+        f"{mib(r0['traffic']['all_reduce']):.4f} MiB; {r0['eval_s'] * 1e3:.1f} ms; launches "
+        f"{r0['eval_counts']}")
+    say("parallel", f"12b RK4 {n_frames} frames x {ic.substeps} substeps (nfe {r0['nfe']}; the "
+        f"recipe's {ic.n_frames} frames unless, at one evaluation's time, they would pass "
+        f"{SPATIAL_SAMPLE_BUDGET_S:g} s): {r0['sample_s']:.1f} s, decode agrees with the "
+        f"unsharded sampler on {agree:.4f} of voxels (limit {SPATIAL_DECODE_AGREEMENT}); peak "
+        + ", ".join(f"{r['sample_peak_gib']:.2f}" for r in ranks) + " GiB per rank")
+    say("parallel", f"12c {SPATIAL_STEPS} sharded train steps at 128³ b1: losses "
+        f"{r0['losses']} (first against the unsharded forward's {want_loss:.6f} on the same "
+        f"draws: relative {loss_err:.2e}, limit {SPATIAL_LOSS_REL_TOL:g}); "
+        f"{', '.join(f'{s:.2f}' for s in r0['step_s'])} s a step; peak "
+        + ", ".join(f"{r['train_peak_gib']:.2f}" for r in ranks) + " GiB per rank (unsharded "
+        "on one card, 11d's plain micro-step: "
+        + ("not run" if peak_128 is None else f"{peak_128:.2f} GiB") + "); params "
+        + ", ".join(r["params"] for r in ranks)
+        + f"; {wall:.1f} s with the ranks' start; {smi}{shared}")
+    check(v_err <= SPATIAL_BF16_REL_TOL and v32_err <= SPATIAL_F32_REL_TOL,
+          f"12b: the sharded velocity is off (bf16 {v_err:.2e}, f32 {v32_err:.2e})")
+    check(agree >= SPATIAL_DECODE_AGREEMENT, f"12b: decode agreement {agree:.4f}")
+    check(loss_err <= SPATIAL_LOSS_REL_TOL, f"12c: the sharded loss is off ({loss_err:.2e})")
+    check(all(r["params"] == r0["params"] and r["ema"] == r0["ema"] for r in ranks),
+          "12c: the replicas' parameters or EMA differ")
+    check(all(not any(r[k].values()) for r in ranks for k in
+              ("eval_counts", "sample_counts", "train_counts")),
+          "12b/12c: the sharded path launched a hand-written kernel (JAX's takes none)")
+    return {f"12{part} spatial rank {i}": r[key] for i, r in enumerate(ranks)
+            for part, key in (("b", "sample_counts"), ("c", "train_counts"))}
+
+
+def phase_two_cards(smi: str) -> dict:
+    """12d, on two cards or more: the app on cards 0 and 1, and K1, K2, K4a and K4b on
+    a card that is not the current one."""
+    if torch.cuda.device_count() < 2:
+        say("parallel", "12d not run: one card")
+        return {}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as root:
+        out, log = run_app(["--preset", "flagship", "--mode", "train", "--steps", "4",
+                            "--train-devices", "0,1", "--no-save-images", "--no-pretrain-smoke",
+                            "--root-dir", root])
+        saved = find_steps(os.path.join(root, "saved_models", unconditional_64().name))
+    losses = [h["train_loss"] for h in out["train"].history]
+    say("parallel", f"12d the app with --train-devices 0,1 (NCCL, one rank a card), 4 "
+        f"micro-steps: losses {losses}, checkpoints {saved}; {smi}")
+    check(saved == [4] and all(np.isfinite(losses)), "12d: the two-card app run failed")
+    current = torch.cuda.current_device()
+    other = torch.device("cuda", 1 - current)
+    worst = {}
+    q, k, v, mk, mv = (t.to(other) for t in make_inputs(2, STAGE_TOKENS[1], seed=1201))
+    ctx = la.folded_context(k, v, mk, mv, HEADS)
+    worst["folded_context"] = compare("folded_context", "other card", ctx,
+                                      la.folded_context_plain(k, v, mk, mv, HEADS))
+    worst["folded_project"] = compare("folded_project", "other card",
+                                      la.folded_project(q, ctx, HEADS),
+                                      la.folded_project_plain(q, ctx, HEADS))
+    qv, kv, vv = (t.to(other) for t in make_v1_inputs(2, STAGE_TOKENS[1], seed=1202))
+    ctx = la.linear_context(kv, vv)
+    worst["linear_context"] = compare("linear_context", "other card", ctx,
+                                      la.linear_context_plain(kv, vv))
+    worst["linear_project"] = compare("linear_project", "other card",
+                                      la.linear_project(qv, ctx), la.linear_project_plain(qv, ctx))
+    torch.cuda.synchronize(other)
+    say("parallel", f"12d K1, K2, K4a and K4b on {other} with {current} current: max abs "
+        f"errors {worst}; current device after: {torch.cuda.current_device()}")
+    check(torch.cuda.current_device() == current, "12d: a wrapper changed the current device")
+    return {}
+
+
+def phase_parallel(smi: str, peak_128=None) -> dict:
+    """Phase 12: 12a data parallel, 12b and 12c spatial, 12d two cards."""
+    launches = phase_data_parallel(smi)
+    launches.update(phase_spatial(smi, peak_128))
+    launches.update(phase_two_cards(smi))
+    return launches
 
 
 def main() -> int:
@@ -2704,8 +3142,9 @@ def main() -> int:
     launches.update(phase_ckpt(smi))
     launches.update(phase_options())
     launches.update(phase_host_data(smi))
-    launches_128, rows_128, worst_128 = phase_128(smi)
+    launches_128, rows_128, worst_128, peak_128 = phase_128(smi)
     launches.update(launches_128)
+    launches.update(phase_parallel(smi, peak_128))
     for name, err in worst_128.items():
         worst[name] = max(worst[name], err)
 

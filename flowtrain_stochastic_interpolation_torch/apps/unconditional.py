@@ -10,8 +10,12 @@ both``, ``--n-samples``, ``--batch-size``, ``--seed``, ``--steps``,
 ``samples/<name>/decoded_s{seed}_{i}.npy`` as int8 with air = -1, the
 ``samples/min`` line, metrics, images and checkpoints under ``--root-dir``.
 
-``--train-devices`` and ``--infer-device`` take ``cuda`` (the default) or
-``cpu``; without a card, ``cuda`` raises. Weights resolve from an explicit
+``--infer-device`` takes ``cuda`` (the default) or ``cpu``; without a card,
+``cuda`` raises. ``--train-devices`` takes those two, ``auto`` (every visible
+card) or a comma list of card indices, as the JAX app's ``resolve_devices``:
+more than one card trains data-parallel, one NCCL rank per card
+(:func:`parallel.launch.run_on_devices`); under torchrun or SLURM the ranks
+join that job instead. Weights resolve from an explicit
 ``--checkpoint-path`` (a reference Lightning ``.ckpt``, a release directory
 such as ``artifacts/weights/uncond_demo_64``, or a checkpoint directory of
 this port), then the run's own checkpoint directory, then a seeded fresh init
@@ -43,9 +47,15 @@ from flowtrain_stochastic_interpolation_torch.models.persistence import (
     state_dict_from_release,
 )
 from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
+from flowtrain_stochastic_interpolation_torch.parallel.distributed import is_primary
+from flowtrain_stochastic_interpolation_torch.parallel.launch import (
+    resolve_devices,
+    run_on_devices,
+)
 from flowtrain_stochastic_interpolation_torch.train.callbacks import InferenceCallback
 from flowtrain_stochastic_interpolation_torch.train.checkpoint import CheckpointManager
 from flowtrain_stochastic_interpolation_torch.train.loop import (
+    TrainResult,
     build_model,
     init_train_state,
     train,
@@ -168,6 +178,27 @@ def run_inference(args, config, dirs) -> SampleResult:
     return result
 
 
+def _train_job(dev: torch.device, args, config, dirs) -> TrainResult:
+    """Training on ``dev``, as one rank of a job or alone; the primary rank owns
+    the metrics, the callback and the checkpoints. A rank of several hands back
+    its result without the state."""
+    primary = is_primary()
+    writer = MetricsWriter(dirs["metrics_dir"]) if primary else None
+    callback = InferenceCallback(
+        config, build_model(config, device=dev), dirs["photo_dir"],
+        every_n_epochs=config.training.inference_every_epochs, writer=writer,
+    ) if primary else None
+    result = train(
+        config, num_steps=args.steps, checkpoint_dir=dirs["checkpoint_dir"],
+        writer=writer, callback=callback, pretrain_smoke=args.pretrain_smoke, device=dev,
+    )
+    if writer:
+        writer.close()
+    if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+        result = dataclasses.replace(result, state=None)
+    return result
+
+
 def parse_arguments(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(
         description="Train or sample the unconditional 3D geology model",
@@ -188,8 +219,9 @@ def parse_arguments(argv: Optional[Sequence[str]] = None):
     p.add_argument("--root-dir", type=str, default=os.path.dirname(os.path.abspath(__file__)))
     p.add_argument("--preset", choices=["flagship", "tiny"], default="flagship",
                    help="tiny = 8^3 smoke config for CPU runs")
-    p.add_argument("--train-devices", choices=DEVICES, default="cuda",
-                   help="the device of --mode train and both (one card; no mesh)")
+    p.add_argument("--train-devices", default="cuda",
+                   help="the devices of --mode train and both: cuda, cpu, auto (every "
+                        "visible card, one rank each) or a comma list of card indices")
     p.add_argument("--infer-device", choices=DEVICES, default="cuda",
                    help="the device of --mode inference and both")
     p.add_argument("--pretrain-smoke", action=argparse.BooleanOptionalAction, default=True,
@@ -208,18 +240,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     out = {"train": None, "inference": None}
 
     if args.mode in ("train", "both"):
-        dev = resolve_device(args.train_devices)
-        writer = MetricsWriter(dirs["metrics_dir"])
-        callback = InferenceCallback(
-            config, build_model(config, device=dev), dirs["photo_dir"],
-            every_n_epochs=config.training.inference_every_epochs,
-            writer=writer,
-        )
-        result = train(
-            config, num_steps=args.steps, checkpoint_dir=dirs["checkpoint_dir"],
-            writer=writer, callback=callback, pretrain_smoke=args.pretrain_smoke, device=dev,
-        )
-        writer.close()
+        result = run_on_devices(_train_job, resolve_devices(args.train_devices),
+                                (args, config, dirs))
         print(f"training: {result.steps_per_sec:.3f} steps/s, "
               f"final loss {result.history[-1]['train_loss']:.4f}")
         out["train"] = result

@@ -377,13 +377,10 @@ int launch_wide(const void* q, const void* k, const void* v, long long q_bs, lon
                 long long q_hs, long long k_bs, long long k_ts, long long k_hs, long long v_bs,
                 long long v_ts, long long v_hs, void* out, void* lse, int batch, int heads,
                 int n, int m, int d, float scale, cudaStream_t s) {
-  static bool sized = false;  // above 48 KB only once the kernel is allowed to
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, FW_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
+  static bool sized[mma_async::MAX_DEVICES] = {};  // above 48 KB once allowed, per device
+  const int code =
+      mma_async::allow_smem(reinterpret_cast<const void*>(flash_wide<T>), FW_SMEM, sized);
+  if (code != 0) return code;
   const dim3 grid((n + FW_ROWS - 1) / FW_ROWS, batch * heads, (d + FW_COLS - 1) / FW_COLS);
   flash_wide<T><<<grid, FW_THREADS, FW_SMEM, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_bs, q_ts,
@@ -623,13 +620,10 @@ int launch_mma(const void* q, const void* k, const void* v, long long q_bs, long
                long long v_ts, long long v_hs, void* out, void* lse, int batch, int heads, int n,
                int m, int d, float scale, cudaStream_t s) {
   using S = MmaShape<D>;
-  static bool sized = false;  // above 48 KB only once the kernel is allowed to
-  if (!sized) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(flash_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
+  static bool sized[mma_async::MAX_DEVICES] = {};  // above 48 KB once allowed, per device
+  const int code =
+      mma_async::allow_smem(reinterpret_cast<const void*>(flash_mma<D>), S::SMEM, sized);
+  if (code != 0) return code;
   const dim3 grid((n + S::ROWS - 1) / S::ROWS, batch * heads);
   flash_mma<D><<<grid, S::THREADS, S::SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

@@ -415,13 +415,10 @@ bool stream_path(const void* a, const void* b, const void* out, long long b_ks, 
 template <int NT>
 int launch_stream(const void* a, const void* b, void* out, int M, int N, int K, bool b_kn,
                   bool o_mn, const stream::Plan& p, cudaStream_t s) {
-  static bool sized = false;  // above 48 KB only once the kernel is allowed to
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_stream<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, stream::SMEM_LIMIT);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
+  static bool sized[mma_async::MAX_DEVICES] = {};  // above 48 KB once allowed, per device
+  const int allowed = mma_async::allow_smem(
+      reinterpret_cast<const void*>(gemm_stream<NT>), stream::SMEM_LIMIT, sized);
+  if (allowed != 0) return allowed;
   CUtensorMap a_map;
   const int mapped = a_tensor_map(&a_map, a, M, K);
   if (mapped) return mapped;
@@ -723,13 +720,10 @@ template <int NT>
 int launch_windows(const void* a, const void* b, float* best, int grid, int m_block, int K,
                    int N, int reps, const window::Plan& p, cudaStream_t s) {
   using namespace window;
-  static bool sized = false;  // above 48 KB only once the kernel is allowed to
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        probe_windows<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
+  static bool sized[mma_async::MAX_DEVICES] = {};  // above 48 KB once allowed, per device
+  const int allowed = mma_async::allow_smem(
+      reinterpret_cast<const void*>(probe_windows<NT>), SMEM_LIMIT, sized);
+  if (allowed != 0) return allowed;
   // A as [grid][m_block + 256][K], boxes of 64 k x SLAB rows x 1 step, zeros past
   // K and past a step's rows
   CUtensorMap a_map;

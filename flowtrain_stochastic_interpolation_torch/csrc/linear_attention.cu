@@ -1155,13 +1155,10 @@ int launch_project(const void* q, long long q_bs, long long q_ts, long long q_hs
                    int batch, int heads, int d, int n, int grid_x, int round_bf16, float scale,
                    cudaStream_t s) {
   using S = ProjShape<DB>;
-  static bool sized = false;  // above 48 KB only once the kernel is allowed to
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        project_general<T, DB>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
+  static bool sized[mma_async::MAX_DEVICES] = {};  // above 48 KB once allowed, per device
+  const int code = mma_async::allow_smem(reinterpret_cast<const void*>(project_general<T, DB>),
+                                         S::SMEM, sized);
+  if (code != 0) return code;
   const int n_tiles = (n + S::ROWS - 1) / S::ROWS;
   project_general<T, DB><<<dim3(grid_x, batch * heads), THREADS, S::SMEM, s>>>(
       static_cast<const T*>(q), q_bs, q_ts, q_hs, static_cast<const float*>(ctx), c_bs, c_hs,

@@ -308,4 +308,20 @@ inline int bf16_tensor_map(CUtensorMap* map, const void* base, int rank, const c
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// cudaFuncSetAttribute holds for the current device only, so a kernel that
+// needs more than 48 KB of dynamic shared memory is allowed it once per
+// device, as the caller's `done` records. Returns 0 or a CUDA error code.
+inline int allow_smem(const void* kernel, int smem, bool (&done)[MAX_DEVICES]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < MAX_DEVICES && done[device]) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < MAX_DEVICES) done[device] = true;
+  return 0;
+}
+
 }  // namespace mma_async

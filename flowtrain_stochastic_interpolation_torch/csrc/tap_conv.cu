@@ -489,13 +489,10 @@ bool box_path(int is_f32, int cin, int cout) {
 // with as many blocks as fit (at least one), and no more than there are boxes.
 template <int STAGES>
 int box_slots(const box::Plan& p, long long boxes, int* slots) {
-  static bool sized = false;  // above 48 KB only once the kernel is allowed to
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv_weight_box<STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, box::SMEM_LIMIT);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
+  static bool sized[mma_async::MAX_DEVICES] = {};  // above 48 KB once allowed, per device
+  const int allowed = mma_async::allow_smem(
+      reinterpret_cast<const void*>(conv_weight_box<STAGES>), box::SMEM_LIMIT, sized);
+  if (allowed != 0) return allowed;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -799,13 +796,10 @@ template <int NW>
 int launch_forward_box(const void* x, const void* w, const void* bias, void* out, long long voxels,
                        int X, int Y, int Z, int cin, int cout, const fwd::Plan& p,
                        cudaStream_t s) {
-  static bool sized = false;  // above 48 KB only once the kernel is allowed to
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv_forward_box<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, box::SMEM_LIMIT);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
+  static bool sized[mma_async::MAX_DEVICES] = {};  // above 48 KB once allowed, per device
+  const int allowed = mma_async::allow_smem(
+      reinterpret_cast<const void*>(conv_forward_box<NW>), box::SMEM_LIMIT, sized);
+  if (allowed != 0) return allowed;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);

@@ -8,8 +8,9 @@ velocity is the UNet, ``model(x, t)``, or the conditional UNet,
 ``model(x, atb, t)``; the state may be bf16 (the model computes in its own
 dtype and the ODE's velocity is cast to the state's); the final state is
 decoded by cosine argmax; ``with_prominence`` adds its top-1 minus top-2
-softmax margin. The JAX package's spatially sharded sampler
-(``make_spatial_sampler``) is not ported.
+softmax margin. :func:`make_spatial_sampler` is the sampler of a model
+whose X axis is sharded over the ranks of a mesh's spatial group: each rank
+integrates and decodes its own slab.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -179,6 +180,45 @@ def make_sampler(
         return out
 
     return sampler
+
+
+def make_spatial_sampler(
+    model: nn.Module,
+    table: torch.Tensor,
+    mesh,
+    *,
+    conditional: bool = False,
+    t0: float = 0.001,
+    tf: float = 1.0,
+    n_frames: int = 16,
+    substeps: int = 2,
+    method: str = "rk4",
+    with_prominence: bool = False,
+    variables_as_arg: bool = False,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The sampler of a volume too large for one card, its X axis sharded over
+    ``mesh``'s spatial group (a :class:`parallel.mesh.Mesh` with a spatial axis).
+
+    ``model`` must be built with that group (``spatial_group=mesh.spatial_group``:
+    halo convs, ring attention, the collective linear attention). Each rank
+    calls ``sampler(x0[, atb])`` with its own slab ``[B_loc, X_loc, Y, Z, E]``
+    (``parallel.mesh.shard_batch``) and gets ``{"decoded", "nfe"[,
+    "prominence"]}`` for that slab: the fixed-step ``method`` over the frame
+    grid, then the decode, as :func:`make_sampler` (whose rules hold). The
+    adaptive and SDE solvers are out, as in the JAX package: an error norm or a
+    noise draw per slab would differ between the ranks of one sample.
+    """
+    if "spatial" not in mesh.axis_names:
+        raise ValueError(f"mesh has axes {mesh.axis_names}; a 'spatial' axis is required "
+                         "(parallel.mesh.create_mesh(n_data, n_spatial))")
+    if getattr(model, "spatial_group", None) is not mesh.spatial_group:
+        raise ValueError("the model must be built with the mesh's spatial group "
+                         "(spatial_group=mesh.spatial_group)")
+    if method == "sde":
+        raise ValueError("the spatial sampler integrates an ODE; method='sde' is not one")
+    return make_sampler(model, table, conditional=conditional, t0=t0, tf=tf,
+                        n_frames=n_frames, substeps=substeps, method=method,
+                        with_prominence=with_prominence, variables_as_arg=variables_as_arg)
 
 
 def _model_device(model: nn.Module, device) -> torch.device:

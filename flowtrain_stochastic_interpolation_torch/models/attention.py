@@ -19,6 +19,12 @@ Port of ``flowtrain_stochastic_interpolation_tpu/models/attention.py``:
   plain f32 version on the CPU), as the JAX package's ``_sdpa`` dispatches;
   otherwise einsum + softmax (the flagship's innermost stage has 4³ = 64
   tokens, so it stays einsum).
+
+With a ``spatial_group`` (the JAX modules' ``spatial_axis``: the token axis
+sharded over the group, X slab by X slab), both take their sharded form
+before any other: :func:`parallel.spatial.sharded_linear_attention` and
+:func:`parallel.spatial.ring_attention`, in f32 and with no hand-written
+kernel, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ from flowtrain_stochastic_interpolation_torch.ops.flash_attention import flash_a
 from flowtrain_stochastic_interpolation_torch.ops.linear_attention import (
     linear_attention,
     linear_attention_folded,
+)
+from flowtrain_stochastic_interpolation_torch.parallel.spatial import (
+    ring_attention,
+    sharded_linear_attention,
 )
 
 _FOLDED_LINEAR_MIN_TOKENS = 4096
@@ -51,9 +61,10 @@ class _TokenAttention(nn.Module):
     """Shared parameters: input RMSNorm, bias-free qkv projection, memory KV."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_mem_kv: int = 4,
-                 *, dtype: Optional[torch.dtype] = None, device=None):
+                 *, spatial_group=None, dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         self.heads, self.dim_head, self.num_mem_kv = heads, dim_head, num_mem_kv
+        self.spatial_group = spatial_group
         hidden = heads * dim_head
         self.norm = RMSNorm(dim, device=device)
         self.to_qkv = Dense(dim, hidden * 3, use_bias=False, dtype=dtype, device=device)
@@ -64,13 +75,18 @@ class _TokenAttention(nn.Module):
         with torch.no_grad():
             self.mem_kv.normal_(0.0, 1.0, generator=generator)
 
+    def _split(self, qkv: torch.Tensor):
+        """``[B, N, 3·h·d]`` projection -> q, k, v ``[B, N, h, d]`` (slices of it)
+        and the memory keys and values ``[B, n_mem, h, d]``."""
+        b, n = qkv.shape[:2]
+        qkv = qkv.reshape(b, n, 3, self.heads, self.dim_head)
+        return (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                *_memory_kv(self.mem_kv, b, qkv.dtype))
+
     def _split_with_memory(self, qkv: torch.Tensor):
         """``[B, N, 3·h·d]`` projection -> q ``[B, N, h, d]`` (a slice of it) and
         k, v ``[B, n_mem + N, h, d]`` with the memory tokens first."""
-        b, n = qkv.shape[:2]
-        qkv = qkv.reshape(b, n, 3, self.heads, self.dim_head)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        mk, mv = _memory_kv(self.mem_kv, b, q.dtype)
+        q, k, v, mk, mv = self._split(qkv)
         return q, torch.cat([mk, k], dim=1), torch.cat([mv, v], dim=1)
 
 
@@ -79,9 +95,10 @@ class LinearAttention(_TokenAttention):
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_mem_kv: int = 4,
                  *, fused: bool = False, fused_folded: bool = True,
-                 folded_vjp: Optional[str] = None, dtype: Optional[torch.dtype] = None,
-                 device=None):
-        super().__init__(dim, heads, dim_head, num_mem_kv, dtype=dtype, device=device)
+                 folded_vjp: Optional[str] = None, spatial_group=None,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__(dim, heads, dim_head, num_mem_kv, spatial_group=spatial_group,
+                         dtype=dtype, device=device)
         self.fused = fused
         self.fused_folded = fused_folded
         self.folded_vjp = folded_vjp
@@ -92,6 +109,7 @@ class LinearAttention(_TokenAttention):
         hidden = self.heads * self.dim_head
         return (
             self.fused_folded
+            and self.spatial_group is None
             and qkv.is_cuda
             and qkv.shape[1] >= _FOLDED_LINEAR_MIN_TOKENS
             and hidden % 128 == 0
@@ -105,7 +123,10 @@ class LinearAttention(_TokenAttention):
         b, spatial = x.shape[0], x.shape[1:-1]
         hidden = self.heads * self.dim_head
         qkv = self.to_qkv(self.norm(x)).reshape(b, -1, 3 * hidden)
-        if self.takes_folded(qkv):
+        if self.spatial_group is not None:
+            q, k, v, mk, mv = self._split(qkv)
+            out = sharded_linear_attention(q, k, v, self.spatial_group, mem_k=mk, mem_v=mv)
+        elif self.takes_folded(qkv):
             out = self.attend_folded(qkv)
         elif self.takes_v1(qkv.shape[1]):
             out = self.attend_v1(qkv)
@@ -141,8 +162,10 @@ class Attention(_TokenAttention):
     """Full softmax attention with memory KV: flash at ≥ 1024 tokens, else einsum."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, num_mem_kv: int = 4,
-                 *, flash: bool = True, dtype: Optional[torch.dtype] = None, device=None):
-        super().__init__(dim, heads, dim_head, num_mem_kv, dtype=dtype, device=device)
+                 *, flash: bool = True, spatial_group=None, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__(dim, heads, dim_head, num_mem_kv, spatial_group=spatial_group,
+                         dtype=dtype, device=device)
         self.flash = flash
 
     def takes_flash(self, n: int) -> bool:
@@ -152,7 +175,12 @@ class Attention(_TokenAttention):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, spatial = x.shape[0], x.shape[1:-1]
         hidden = self.heads * self.dim_head
-        q, k, v = self._split_with_memory(self.to_qkv(self.norm(x)).reshape(b, -1, 3 * hidden))
+        qkv = self.to_qkv(self.norm(x)).reshape(b, -1, 3 * hidden)
+        if self.spatial_group is not None:
+            q, k, v, mk, mv = self._split(qkv)
+            out = ring_attention(q, k, v, self.spatial_group, mem_k=mk, mem_v=mv)
+            return self.to_out(out.reshape(b, *spatial, hidden))
+        q, k, v = self._split_with_memory(qkv)
         if self.takes_flash(q.shape[1]):
             out = flash_attention(q, k, v)
         else:

@@ -15,6 +15,13 @@ convolution, which here is ``F.conv3d`` (cuDNN on the card) in the
 
 Parameter names follow the flax modules' (``kernel`` becomes ``weight``), so
 :func:`models.persistence.params_from_jax` maps one tree onto the other.
+
+Spatial parallelism (the JAX layers' ``spatial_axis``): with a
+``spatial_group`` (a ``torch.distributed`` group over which the X axis is
+sharded), :func:`conv_nd` gives a :class:`SpatialConv3d` for kernels larger
+than 1 (the halo-exchange conv of :mod:`parallel.spatial`, with
+:class:`Conv3d`'s parameters), and :class:`Upsample` / :class:`Downsample`
+resize with :func:`parallel.spatial.sharded_resize3d`.
 Initialisers follow flax's defaults: LeCun-normal kernels, zero biases, unit
 RMSNorm gains.
 """
@@ -29,6 +36,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from flowtrain_stochastic_interpolation_torch.models.resize import resize3d
+from flowtrain_stochastic_interpolation_torch.parallel.spatial import (
+    halo_conv3d,
+    sharded_resize3d,
+)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
@@ -92,6 +103,31 @@ class Conv3d(nn.Module):
         return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
+class SpatialConv3d(Conv3d):
+    """:class:`Conv3d` over an X-sharded volume: the halo exchange over
+    ``spatial_group``, then the conv VALID along X (the JAX ``SpatialConv3D``).
+    The parameters are :class:`Conv3d`'s, so weights interchange."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, *, spatial_group,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__(in_channels, out_channels, kernel, dtype=dtype, device=device)
+        self.spatial_group = spatial_group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        return halo_conv3d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.spatial_group)
+
+
+def conv_nd(in_channels: int, out_channels: int, kernel: int, *, spatial_group=None,
+            dtype: Optional[torch.dtype] = None, device=None) -> Conv3d:
+    """The 3-D SAME conv: a :class:`SpatialConv3d` with a ``spatial_group`` and a
+    kernel larger than 1, else a :class:`Conv3d`."""
+    if spatial_group is not None and kernel > 1:
+        return SpatialConv3d(in_channels, out_channels, kernel, spatial_group=spatial_group,
+                             dtype=dtype, device=device)
+    return Conv3d(in_channels, out_channels, kernel, dtype=dtype, device=device)
+
+
 class RMSNorm(nn.Module):
     """RMS normalisation over channels with a learnable gain.
 
@@ -113,26 +149,38 @@ class RMSNorm(nn.Module):
         return normed * (self.g * math.sqrt(self.dim)).to(x.dtype)
 
 
+def resize(x: torch.Tensor, scale: float, spatial_group=None) -> torch.Tensor:
+    """:func:`models.resize.resize3d`, or its sharded form with a ``spatial_group``."""
+    if spatial_group is None:
+        return resize3d(x, scale)
+    return sharded_resize3d(x, scale, spatial_group)
+
+
 class Upsample(nn.Module):
     """×2 align-corners trilinear upsample + 3³ conv."""
 
-    def __init__(self, ch_in: int, ch_out: int, *, dtype=None, device=None):
+    def __init__(self, ch_in: int, ch_out: int, *, spatial_group=None, dtype=None,
+                 device=None):
         super().__init__()
-        self.conv = Conv3d(ch_in, ch_out, 3, dtype=dtype, device=device)
+        self.spatial_group = spatial_group
+        self.conv = conv_nd(ch_in, ch_out, 3, spatial_group=spatial_group, dtype=dtype,
+                            device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(resize3d(x, 2.0))
+        return self.conv(resize(x, 2.0, self.spatial_group))
 
 
 class Downsample(nn.Module):
     """×0.5 align-corners trilinear downsample + 1×1 conv."""
 
-    def __init__(self, ch_in: int, ch_out: int, *, dtype=None, device=None):
+    def __init__(self, ch_in: int, ch_out: int, *, spatial_group=None, dtype=None,
+                 device=None):
         super().__init__()
+        self.spatial_group = spatial_group
         self.conv = Dense(ch_in, ch_out, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(resize3d(x, 0.5))
+        return self.conv(resize(x, 0.5, self.spatial_group))
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -225,11 +273,12 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
 class Block(nn.Module):
     """conv3 → RMSNorm → FiLM(scale+1, shift) → SiLU → dropout (in training only)."""
 
-    def __init__(self, dim_in: int, dim_out: int, *, dropout: float = 0.0, dtype=None,
-                 device=None):
+    def __init__(self, dim_in: int, dim_out: int, *, dropout: float = 0.0, spatial_group=None,
+                 dtype=None, device=None):
         super().__init__()
         self.dropout = dropout
-        self.proj = Conv3d(dim_in, dim_out, 3, dtype=dtype, device=device)
+        self.proj = conv_nd(dim_in, dim_out, 3, spatial_group=spatial_group, dtype=dtype,
+                            device=device)
         self.norm = RMSNorm(dim_out, device=device)
 
     def forward(self, x: torch.Tensor,
@@ -250,11 +299,13 @@ class ResnetBlock(nn.Module):
     ``block1`` only, as the JAX package's ResnetBlock."""
 
     def __init__(self, dim_in: int, dim_out: int, time_dim: int, *, dropout: float = 0.0,
-                 dtype=None, device=None):
+                 spatial_group=None, dtype=None, device=None):
         super().__init__()
         self.mlp = Dense(time_dim, dim_out * 2, dtype=dtype, device=device)
-        self.block1 = Block(dim_in, dim_out, dropout=dropout, dtype=dtype, device=device)
-        self.block2 = Block(dim_out, dim_out, dtype=dtype, device=device)
+        self.block1 = Block(dim_in, dim_out, dropout=dropout, spatial_group=spatial_group,
+                            dtype=dtype, device=device)
+        self.block2 = Block(dim_out, dim_out, spatial_group=spatial_group, dtype=dtype,
+                            device=device)
         self.res_conv = (Dense(dim_in, dim_out, dtype=dtype, device=device)
                          if dim_in != dim_out else None)
 

@@ -22,6 +22,13 @@ module's ``deterministic=True`` default gives (and that sampling needs).
 dropout of every ResnetBlock's ``block1``; its masks come from the
 ``generator`` passed to :meth:`UNet.forward`.
 
+With a ``spatial_group`` (the flax module's ``spatial_axis``) the model runs
+on one X slab of the volume per rank of that ``torch.distributed`` group:
+every conv larger than 1×1 exchanges halos, the resamplings are the sharded
+resize, and attention is ring attention or the collective linear attention
+(:mod:`parallel.spatial`). The parameters are the same as without it, so the
+same ``state_dict`` (or JAX tree) loads into either.
+
 Submodules carry the flax module names (``downs_0_block1``, ``mid_attn``,
 ``ups_2_upsample``, ...), so the JAX package's parameter tree maps onto this
 module's ``state_dict`` leaf by leaf (:func:`models.persistence.params_from_jax`).
@@ -41,12 +48,12 @@ from flowtrain_stochastic_interpolation_torch.models.attention import (
     LinearAttention,
 )
 from flowtrain_stochastic_interpolation_torch.models.layers import (
-    Conv3d,
     Dense,
     Downsample,
     ResnetBlock,
     TimeMLP,
     Upsample,
+    conv_nd,
 )
 from flowtrain_stochastic_interpolation_torch.models.remat import checkpoint
 
@@ -89,9 +96,11 @@ class UNet(nn.Module):
         remat_blocks: bool = False,
         dtype: Optional[torch.dtype] = None,
         device=None,
+        spatial_group=None,
     ):
         super().__init__()
         self.dim = dim
+        self.spatial_group = spatial_group
         self.self_condition = self_condition
         self.remat_blocks = remat_blocks
         self.dim_mults = tuple(dim_mults)
@@ -104,19 +113,20 @@ class UNet(nn.Module):
         dim_heads = _cast_tuple(attn_dim_head, n_stages)
         time_dim = dim * 4
         kw = dict(dtype=dtype, device=device)
+        sp = dict(kw, spatial_group=spatial_group)
 
         def attn(ch, is_full, h, dh):
             if not attn_enabled:
                 return None
             if is_full:
-                return Attention(ch, h, dh, flash=flash_attn, **kw)
+                return Attention(ch, h, dh, flash=flash_attn, **sp)
             return LinearAttention(ch, h, dh, fused_folded=fused_folded_attn,
-                                   folded_vjp=folded_attn_vjp, **kw)
+                                   folded_vjp=folded_attn_vjp, **sp)
 
         def res(ch_in, ch_out):
-            return ResnetBlock(ch_in, ch_out, time_dim, dropout=dropout, **kw)
+            return ResnetBlock(ch_in, ch_out, time_dim, dropout=dropout, **sp)
 
-        self._input_convs(data_channels, dim, kw)
+        self._input_convs(data_channels, dim, sp)
         self.time_mlp = TimeMLP(time_resolution, time_dim, sin_pos=time_sin_pos,
                                 learned_emb=time_learned_emb, bandwidth=time_bandwidth, **kw)
 
@@ -128,7 +138,7 @@ class UNet(nn.Module):
             skip_dims += [dim_in, dim_in]
             last = i >= n_stages - 1
             setattr(self, f"downs_{i}_downsample",
-                    Conv3d(dim_in, dim_out, 3, **kw) if last else Downsample(dim_in, dim_out, **kw))
+                    conv_nd(dim_in, dim_out, 3, **sp) if last else Downsample(dim_in, dim_out, **sp))
 
         mid_dim = dims[-1]
         self.mid_block1 = res(mid_dim, mid_dim)
@@ -144,7 +154,7 @@ class UNet(nn.Module):
             setattr(self, f"ups_{i}_attn", attn(dim_out, fa, hh, dh))
             last = i == n_stages - 1
             setattr(self, f"ups_{i}_upsample",
-                    Conv3d(dim_out, dim_in, 3, **kw) if last else Upsample(dim_out, dim_in, **kw))
+                    conv_nd(dim_out, dim_in, 3, **sp) if last else Upsample(dim_out, dim_in, **sp))
             ch = dim_in
 
         self.final_res_block = res(ch + dim, dim)
@@ -153,10 +163,10 @@ class UNet(nn.Module):
         self.eval()
 
     def _input_convs(self, data_channels: int, dim: int, kw: dict) -> None:
-        self.init_conv = Conv3d(data_channels * (1 + self.self_condition), dim, 7, **kw)
+        self.init_conv = conv_nd(data_channels * (1 + self.self_condition), dim, 7, **kw)
 
     @staticmethod
-    def config_kwargs(cfg: ModelConfig, device=None) -> dict:
+    def config_kwargs(cfg: ModelConfig, device=None, spatial_group=None) -> dict:
         """The constructor's arguments for a :class:`config.ModelConfig`."""
         return dict(
             dim=cfg.dim, dim_mults=cfg.dim_mults, data_channels=cfg.data_channels,
@@ -167,18 +177,19 @@ class UNet(nn.Module):
             full_attn=cfg.full_attn, dropout=cfg.dropout, flash_attn=cfg.flash_attn,
             fused_folded_attn=cfg.fused_folded_attn, folded_attn_vjp=cfg.attn_folded_vjp,
             remat_blocks=cfg.remat_blocks, dtype=COMPUTE_DTYPES.get(cfg.dtype),
-            device=resolve_device(device),
+            device=resolve_device(device), spatial_group=spatial_group,
         )
 
     @classmethod
-    def from_config(cls, cfg: ModelConfig, *, device=None) -> "UNet":
-        """The UNet of an unconditional :class:`config.ModelConfig`.
+    def from_config(cls, cfg: ModelConfig, *, device=None, spatial_group=None) -> "UNet":
+        """The UNet of an unconditional :class:`config.ModelConfig`, X-sharded over
+        ``spatial_group`` when one is given.
 
         Built on ``cuda`` unless ``device`` names another (:func:`device.resolve_device`).
         """
         if cfg.conditional:
             raise ValueError("a conditional config builds a UNet3DCond (models.unet_cond)")
-        return cls(**cls.config_kwargs(cfg, device))
+        return cls(**cls.config_kwargs(cfg, device, spatial_group))
 
     @property
     def downsample_factor(self) -> int:
@@ -191,6 +202,7 @@ class UNet(nn.Module):
                 m.reset_parameters(generator)
 
     def check_spatial(self, x: torch.Tensor) -> None:
+        """Each (local) spatial dim must divide by the downsampling factor."""
         for d in x.shape[1:4]:
             if d % self.downsample_factor:
                 raise ValueError(

@@ -17,7 +17,9 @@ voxels, zero elsewhere. The trained variant, ``v3`` (the default):
 ``v2`` mixes without the time FiLM and the norm; ``v1`` embeds with conv3s
 and adds the embedding to x at the down stages only.
 
-The constructor options of :class:`models.unet.UNet` hold here too. With
+The constructor options of :class:`models.unet.UNet` hold here too, the
+``spatial_group`` among them: the towers' resize is then the sharded one and
+their convs exchange halos, as the JAX ``EmbedATb`` does under ``spatial_axis``. With
 ``self_condition`` the self-conditioning input joins x (not ATb) before
 ``init_conv_x``, which then takes twice the data channels. Under a
 whole-forward checkpoint with ``save_atb`` (``train.steps``), the towers run
@@ -42,9 +44,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from flowtrain_stochastic_interpolation_torch.config import ModelConfig
-from flowtrain_stochastic_interpolation_torch.models.layers import Conv3d, Dense, RMSNorm
+from flowtrain_stochastic_interpolation_torch.models.layers import Dense, RMSNorm, conv_nd, resize
 from flowtrain_stochastic_interpolation_torch.models.remat import named_region
-from flowtrain_stochastic_interpolation_torch.models.resize import resize3d
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
 
 VARIANTS = ("v1", "v2", "v3")
@@ -55,16 +56,18 @@ class EmbedATb(nn.Module):
     conv → SiLU → conv to ``dim_out`` channels (5³ kernels; 3³ in v1)."""
 
     def __init__(self, ch_in: int, dim_out: int, scale_factor: float = 1.0, kernel: int = 5,
-                 *, dtype: Optional[torch.dtype] = None, device=None):
+                 *, spatial_group=None, dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         self.scale_factor = scale_factor
-        self.conv1 = Conv3d(ch_in, dim_out, kernel, dtype=dtype, device=device)
-        self.conv2 = Conv3d(dim_out, dim_out, kernel, dtype=dtype, device=device)
+        self.spatial_group = spatial_group
+        kw = dict(spatial_group=spatial_group, dtype=dtype, device=device)
+        self.conv1 = conv_nd(ch_in, dim_out, kernel, **kw)
+        self.conv2 = conv_nd(dim_out, dim_out, kernel, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with named_region("atb_tower"):
             if self.scale_factor != 1.0:
-                x = resize3d(x, self.scale_factor)
+                x = resize(x, self.scale_factor, self.spatial_group)
             return self.conv2(F.silu(self.conv1(x)))
 
 
@@ -78,13 +81,15 @@ class MixATb(nn.Module):
     """
 
     def __init__(self, dim: int, time_dim: int, *, time_film: bool = True,
-                 use_norm: bool = True, dtype: Optional[torch.dtype] = None, device=None):
+                 use_norm: bool = True, spatial_group=None, dtype: Optional[torch.dtype] = None,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        sp = dict(kw, spatial_group=spatial_group)
         self.time_mlp = Dense(time_dim, dim * 4, **kw) if time_film else None
-        self.conv1 = Conv3d(2 * dim, dim, 3, **kw)
+        self.conv1 = conv_nd(2 * dim, dim, 3, **sp)
         self.norm = RMSNorm(dim, device=device) if use_norm else None
-        self.conv2 = Conv3d(dim, dim, 3, **kw)
+        self.conv2 = conv_nd(dim, dim, 3, **sp)
 
     def forward(self, x: torch.Tensor, atb: torch.Tensor,
                 t: Optional[torch.Tensor]) -> torch.Tensor:
@@ -110,7 +115,8 @@ class UNet3DCond(UNet):
         super().__init__(dim, *args, **kwargs)
         self.variant = variant
         data_channels = self.init_conv_ATb.weight.shape[1]
-        kw = dict(dtype=self.dtype, device=self.init_conv_x.weight.device)
+        kw = dict(dtype=self.dtype, device=self.init_conv_x.weight.device,
+                  spatial_group=self.spatial_group)
         time_dim = dim * 4
         dims = [dim] + [dim * m for m in self.dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
@@ -132,18 +138,20 @@ class UNet3DCond(UNet):
         self.eval()
 
     def _input_convs(self, data_channels: int, dim: int, kw: dict) -> None:
-        self.init_conv_ATb = Conv3d(data_channels, data_channels, 7, **kw)
-        self.init_conv_x = Conv3d(data_channels * (1 + self.self_condition), dim, 7, **kw)
+        self.init_conv_ATb = conv_nd(data_channels, data_channels, 7, **kw)
+        self.init_conv_x = conv_nd(data_channels * (1 + self.self_condition), dim, 7, **kw)
 
     @classmethod
-    def from_config(cls, cfg: ModelConfig, *, device=None) -> "UNet3DCond":
-        """The conditional UNet of a :class:`config.ModelConfig` (``cond_variant``).
+    def from_config(cls, cfg: ModelConfig, *, device=None,
+                    spatial_group=None) -> "UNet3DCond":
+        """The conditional UNet of a :class:`config.ModelConfig` (``cond_variant``),
+        X-sharded over ``spatial_group`` when one is given.
 
         Built on ``cuda`` unless ``device`` names another (:func:`device.resolve_device`).
         """
         if not cfg.conditional:
             raise ValueError("an unconditional config builds a UNet (models.unet)")
-        return cls(**cls.config_kwargs(cfg, device), variant=cfg.cond_variant)
+        return cls(**cls.config_kwargs(cfg, device, spatial_group), variant=cfg.cond_variant)
 
     def forward(self, x: torch.Tensor, atb: torch.Tensor, time: torch.Tensor,
                 generator: Optional[torch.Generator] = None,

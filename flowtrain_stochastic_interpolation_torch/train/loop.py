@@ -20,6 +20,16 @@ and ``train`` with the JAX loop's rules:
   batch pinned and copied to the device without blocking; a device-side one
   (the synthetic generator) is read inline.
 
+Data parallelism (a ``mesh`` of several data ranks, or a process group of
+several ranks, :mod:`parallel`): every rank draws the global batch from the
+same seed and trains on its block of it (:func:`parallel.mesh.shard_batch`),
+so the global batch is the one-process batch; each rank draws its noise from
+``(training.seed + 17, s, di)``; the step is the global objective's
+(``train.steps``). The parameters start equal on every rank (rank 0's,
+broadcast). The metrics CSV, the callback, the pre-train smoke and the
+checkpoints are written by the primary rank only; a barrier follows each
+save, and every rank reads the checkpoint on resume.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -40,6 +50,9 @@ from flowtrain_stochastic_interpolation_torch.device import resolve_device
 from flowtrain_stochastic_interpolation_torch.models.unet import UNet
 from flowtrain_stochastic_interpolation_torch.models.unet_cond import UNet3DCond
 from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
+from flowtrain_stochastic_interpolation_torch.parallel.collectives import broadcast
+from flowtrain_stochastic_interpolation_torch.parallel.distributed import is_primary
+from flowtrain_stochastic_interpolation_torch.parallel.mesh import Mesh, create_mesh, shard_batch
 from flowtrain_stochastic_interpolation_torch.train.state import (
     Optimizer,
     TrainState,
@@ -52,18 +65,21 @@ from flowtrain_stochastic_interpolation_torch.utils.logging import MetricsWriter
 from flowtrain_stochastic_interpolation_torch.utils.rng import generator
 
 
-def build_model(config: ExperimentConfig, device=None) -> UNet:
+def build_model(config: ExperimentConfig, device=None, spatial_group=None) -> UNet:
     """The configured UNet (a :class:`UNet3DCond` when ``config.model.conditional``),
-    unseeded; its data channels are the embedding width."""
+    unseeded, X-sharded over ``spatial_group`` when one is given; its data
+    channels are the embedding width."""
     mc = dataclasses.replace(config.model, data_channels=config.data.embedding_dim)
-    return (UNet3DCond if mc.conditional else UNet).from_config(mc, device=device)
+    return (UNet3DCond if mc.conditional else UNet).from_config(
+        mc, device=device, spatial_group=spatial_group)
 
 
 def init_model_variables(config: ExperimentConfig, seed: Optional[int] = None,
-                         device=None) -> UNet:
+                         device=None, spatial_group=None) -> UNet:
     """The configured UNet with its parameters drawn from a generator on its
-    device seeded with ``seed`` (``config.training.seed`` when None)."""
-    model = build_model(config, device)
+    device seeded with ``seed`` (``config.training.seed`` when None); X-sharded
+    over ``spatial_group`` when one is given (the same draws)."""
+    model = build_model(config, device, spatial_group)
     param = next(model.parameters())
     gen = torch.Generator(device=param.device)
     gen.manual_seed(config.training.seed if seed is None else seed)
@@ -71,10 +87,21 @@ def init_model_variables(config: ExperimentConfig, seed: Optional[int] = None,
     return model
 
 
-def init_train_state(config: ExperimentConfig,
-                     device=None) -> Tuple[UNet, Optimizer, TrainState]:
-    """``(model, tx, state)``: the seeded model, its optimiser and the train state."""
-    model = init_model_variables(config, device=device)
+def init_train_state(config: ExperimentConfig, device=None,
+                     mesh: Optional[Mesh] = None) -> Tuple[UNet, Optimizer, TrainState]:
+    """``(model, tx, state)``: the seeded model, its optimiser and the train state.
+    With a ``mesh`` of several ranks, the parameters and buffers are rank 0's on
+    every rank (broadcast over the mesh's world group), and the model is
+    X-sharded over the mesh's spatial group where it has one."""
+    model = init_model_variables(config, device=device,
+                                 spatial_group=None if mesh is None else mesh.spatial_group)
+    if mesh is not None and mesh.size > 1:
+        with torch.no_grad():
+            tensors = list(model.parameters()) + list(model.buffers())
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            flat = broadcast(flat, 0, mesh.world_group)
+            parts = torch.split(flat, [t.numel() for t in tensors])
+            torch._foreach_copy_(tensors, [p.view_as(t) for p, t in zip(parts, tensors)])
     dev = next(model.parameters()).device
     table = torch.from_numpy(
         simplex_embedding(config.data.num_categories, config.data.embedding_dim)
@@ -127,25 +154,41 @@ def train(
     callback: Optional[Callable[[int, TrainState, Dict[str, float]], None]] = None,
     pretrain_smoke: bool = False,
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainResult:
     """Run ``num_steps`` micro-steps (or ``training.max_epochs`` epochs).
 
     Starts from :func:`init_train_state`, or from the latest checkpoint in
     ``checkpoint_dir`` when ``config.resume``. ``pretrain_smoke`` runs
-    :func:`_pretrain_smoke` before the first step.
+    :func:`_pretrain_smoke` before the first step. ``mesh`` (the data-parallel
+    mesh over every rank of the process group when None) must have no spatial
+    axis.
     """
     dev = resolve_device(device)
-    model, tx, state = init_train_state(config, device=dev)
+    if mesh is None:
+        mesh = create_mesh()
+    primary = is_primary()
+    model, tx, state = init_train_state(config, device=dev, mesh=mesh)
 
     mgr = None
     if checkpoint_dir:
-        mgr = CheckpointManager(checkpoint_dir, config,
+        mgr = CheckpointManager(checkpoint_dir, config if primary else None,
                                 max_to_keep=config.training.keep_checkpoints)
         if config.resume and mgr.latest_step() is not None:
             state = mgr.restore(state)
-            print(f"[train] resumed from step {state.step}")
+            if primary:
+                print(f"[train] resumed from step {state.step}")
 
-    train_step = make_train_step(model, tx, config)
+    def save(step: int, loss: float) -> None:
+        if primary:
+            mgr.save(step, state, metrics={"train_loss": loss})
+        if mesh.world_group is not None:
+            torch.distributed.barrier(mesh.world_group)
+
+    train_step = make_train_step(model, tx, config, mesh)
+    if not primary:
+        writer = callback = None
+        pretrain_smoke = False
     dataset = get_dataset(config.data, seed=config.training.seed, device=dev)
     noise_seed = config.training.seed + 17
 
@@ -163,6 +206,8 @@ def train(
     step = start_step
     epoch = start_step // per_epoch
     batch_iter = device_batches(dataset, batch_size, epoch, dev)
+    # the rank's own noise under data parallelism; the one-process stream otherwise
+    rank_seed = (mesh.di,) if mesh.n_data > 1 else ()
     while step < start_step + total_steps:
         try:
             batch = next(batch_iter)
@@ -170,7 +215,9 @@ def train(
             epoch += 1
             batch_iter = device_batches(dataset, batch_size, epoch, dev)
             continue
-        state, metrics = train_step(state, batch, generator(dev, noise_seed, state.step))
+        batch = shard_batch(batch, mesh)
+        state, metrics = train_step(state, batch,
+                                    generator(dev, noise_seed, state.step, *rank_seed))
         step += 1
         if t_after_first is None:
             float(metrics["train_loss"])  # waits for the first step
@@ -189,12 +236,12 @@ def train(
                 callback(step, state, host_metrics)
 
         if mgr and step % config.training.checkpoint_every_steps == 0:
-            mgr.save(step, state, metrics={"train_loss": float(metrics["train_loss"])})
+            save(step, float(metrics["train_loss"]))
 
     float(next(iter(state.params.values())).detach().reshape(-1)[0])  # waits for the last step
     t_end = time.perf_counter()
     if mgr:
-        mgr.save(step, state, metrics={"train_loss": history[-1]["train_loss"] if history else 0.0})
+        save(step, history[-1]["train_loss"] if history else 0.0)
 
     n_steps_run = step - start_step
     steady = (

@@ -201,8 +201,8 @@ def test_train_loop_reads_a_host_side_source_through_prefetch(native, monkeypatc
     monkeypatch.setattr(port_loop, "get_dataset", lambda data, seed, device: ds)
     step = port_loop.make_train_step
 
-    def spying(model, tx, config):
-        inner = step(model, tx, config)
+    def spying(model, tx, config, mesh=None):
+        inner = step(model, tx, config, mesh)
 
         def train_step(state, batch, gen):
             consumed.append(batch.clone())

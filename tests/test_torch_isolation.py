@@ -105,6 +105,13 @@ with tempfile.TemporaryDirectory() as tmp:
         loaded, table = unconditional.load_weights(tiny, path, device="cpu")
     assert sorted(dict(loaded.named_buffers())) == ["time_mlp.embed.freqs", "time_mlp.embed.phases"]
 assert list(prefetch.prefetch(iter(range(3)))) == [0, 1, 2]
+# the fourteenth slice: parallelism over torch.distributed
+from {PACKAGE}.parallel import create_mesh, maybe_initialize, shard_batch
+from {PACKAGE}.parallel.launch import spawn
+from {PACKAGE}.parallel.spatial import halo_conv3d, ring_attention, sharded_linear_attention
+from {PACKAGE}.train.shard_map_step import make_shard_map_train_step, make_spatial_train_step
+from {PACKAGE}.inference import make_spatial_sampler
+assert create_mesh().axis_names == ("data",) and not maybe_initialize()
 assert not any(n.split(".")[0] in {POISONED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), "modules")
 """
@@ -124,6 +131,17 @@ def test_port_and_chip_smoke_import_without_jax():
     # (apps, utils, train.checkpoint, train.callbacks) and the samplers' slice's
     # (solvers.dopri5, apps.conditional, apps.inference_experiments) too
     assert int(proc.stdout.split()[0]) >= 40, proc.stdout
+
+
+def test_spawned_ranks_import_no_jax():
+    """The ranks that ``parallel.launch.spawn`` starts (chip_smoke.py's phase 12
+    runs in such processes) load nothing of JAX, even from a parent that has."""
+    import torch_parallel_cases as cases
+    from flowtrain_stochastic_interpolation_torch.parallel.launch import spawn
+
+    assert "jax" in sys.modules  # this test process has it (tests/conftest.py)
+    ranks = spawn(cases.loaded_modules, 2, (POISONED,), threads=1, deadline_s=240)
+    assert ranks == [[], []]
 
 
 def test_importing_the_app_runs_nothing(tmp_path):

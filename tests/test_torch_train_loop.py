@@ -229,8 +229,10 @@ def _run_port_loop(monkeypatch, cfg, start, num_steps, tmp_path):
         state.step += 1
         return state, metrics
 
-    monkeypatch.setattr(port_loop, "init_train_state", lambda config, device: (None, None, state))
-    monkeypatch.setattr(port_loop, "make_train_step", lambda model, tx, config: step_fn)
+    monkeypatch.setattr(port_loop, "init_train_state",
+                        lambda config, device, mesh=None: (None, None, state))
+    monkeypatch.setattr(port_loop, "make_train_step",
+                        lambda model, tx, config, mesh=None: step_fn)
     monkeypatch.setattr(port_loop, "get_dataset",
                         lambda data, seed, device: _fake_dataset(rec, lambda: torch.zeros(1)))
     monkeypatch.setattr(port_loop, "CheckpointManager", _fake_manager(rec, start))
@@ -387,7 +389,7 @@ def test_app_defaults_to_cuda_and_raises_without_a_card(tmp_path):
     assert "no CUDA device" in proc.stderr and "samples/min" not in proc.stdout
 
 
-def test_app_raises_for_what_is_not_ported(tmp_path):
+def test_app_raises_for_what_is_not_ported(tmp_path, monkeypatch):
     dirs = port_app.setup_directories(str(tmp_path), "tiny-smoke")
     # a .ckpt is read now (tests/test_torch_lightning.py); a missing one is an error
     with pytest.raises(FileNotFoundError, match="weights.ckpt"):
@@ -395,8 +397,11 @@ def test_app_raises_for_what_is_not_ported(tmp_path):
     with pytest.raises(FileNotFoundError, match="weights.ckpt"):
         port_app.main(["--preset", "tiny", "--mode", "inference", "--checkpoint-path",
                        "weights.ckpt", "--infer-device", "cpu", "--root-dir", str(tmp_path)])
-    with pytest.raises(SystemExit):
-        port_app.parse_arguments(["--train-devices", "0,1"])
+    # a comma list of cards is a data-parallel run now; without the cards it raises
+    args = port_app.parse_arguments(["--train-devices", "0,1"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_app.resolve_devices(args.train_devices)
     args = port_app.parse_arguments([])
     assert (args.train_devices, args.infer_device, args.mode) == ("cuda", "cuda", "inference")
 
