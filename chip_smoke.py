@@ -169,6 +169,8 @@ Phases, each printed on one flushed line with the seconds since start:
       keeping its trajectory, whose last state must be finite): the decodes
       equal, and other than phase 9's RK4 decodes from the same x0; category
       fractions and samples/min beside phase 9's;
+   b′. the same pair while a buffer holds all of the card's free memory but
+      ``SDE_PRESSURE_MARGIN_GIB``: both decodes equal to each other and to 10b's;
    c. ``make_sampler(frame_dispatch=True)`` from the release at 64³ b2, RK4 over
       4 frames x 2 substeps (24 evaluations): its final state equal to the
       plain sampler's bit for bit;
@@ -240,10 +242,31 @@ Phases, each printed on one flushed line with the seconds since start:
    d. on two cards or more: the app with ``--train-devices 0,1`` for 4
       micro-steps, and K1, K2, K4a and K4b on a card that is not the current
       one against their plain versions; with one card, "not run: one card".
+13. the 2-D family and the toys, the fifteenth slice's main paths, each timed by
+   ``utils.profiling.StepTimer``:
+   a. a ``UNet2D`` at 64² b8 (dim 48, mults (1, 2, 4), 4 heads x 32, full
+      attention at 32² and 16², seeded weights), bf16: one forward on the card
+      (K1 and K2 twice at 64², K3 twice at 32²) against the same weights in f32
+      on the CPU, at ``reference_check``'s tolerance; one forward traced by
+      ``utils.profiling.trace`` (its Chrome trace must be written);
+   b. its RK4 sample over 16 frames x 2 substeps (120 evaluations, K1, K2 and K3
+      240 times each) at b8: the final state finite, images/s;
+   c. ``apps.toy2d_images.train_and_sample`` at its defaults (32², dim 16, b64,
+      lr 2e-3) for ``TOY_IMAGE_STEPS`` steps on the synthetic images: the loss
+      under 0.8 of its first, the 9 x 4 RK4 grid within (-4, 4); steps/s;
+   d. ``apps.toy2d.train_and_sample`` at its defaults (2000 steps, b512): the
+      mean of 8192 samples of the trained flow within 0.15 of the mixture's
+      (-0.4, -0.4);
+   e. ``utils.flops`` on the ``meta`` device: the flagship's 64³ b8 forward and
+      one b4 micro-step, printed as TF/s and as a share of the 989 TF/s bf16
+      peak beside phase 9's per-evaluation time and phase 8's median (a
+      printed line, not a benchmark).
+   ``utils.debug.check_finite`` holds every state the phase produces.
 
 The launch counts are set to 0 just before each main-path run (phases 4a-4c,
-5, 5b, 7, 8, 9, 10, 11 and 12, in each rank) and read just after it. Then one JSON line per kernel (``{"kernels":
-[...]}``), the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+5, 5b, 7, 8, 9, 10, 11, 12 (in each rank) and 13) and read just after it. Then
+one JSON line per kernel (``{"kernels": [...]}``), the nvidia-smi line, and
+last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
 """
 
@@ -270,6 +293,7 @@ import torch
 import torch.nn.functional as F
 
 from flowtrain_stochastic_interpolation_torch.apps import conditional as cond_app
+from flowtrain_stochastic_interpolation_torch.apps import toy2d, toy2d_images
 from flowtrain_stochastic_interpolation_torch.apps import inference_experiments as exp_app
 from flowtrain_stochastic_interpolation_torch.apps import unconditional as app
 from flowtrain_stochastic_interpolation_torch.config import (
@@ -298,7 +322,7 @@ from flowtrain_stochastic_interpolation_torch.models.persistence import (
     state_dict_from_release,
     variables_to_jax,
 )
-from flowtrain_stochastic_interpolation_torch.models.unet import UNet
+from flowtrain_stochastic_interpolation_torch.models.unet import UNet, UNet2D
 from flowtrain_stochastic_interpolation_torch.inference import make_spatial_sampler
 from flowtrain_stochastic_interpolation_torch.ops import cuda_build, ensemble
 from flowtrain_stochastic_interpolation_torch.ops import flash_attention as fa
@@ -331,6 +355,8 @@ from flowtrain_stochastic_interpolation_torch.train.shard_map_step import (
     spatial_draws,
 )
 from flowtrain_stochastic_interpolation_torch.train.steps import make_eval_loss, make_train_step
+from flowtrain_stochastic_interpolation_torch.utils import flops, profiling
+from flowtrain_stochastic_interpolation_torch.utils.debug import check_finite
 from flowtrain_stochastic_interpolation_torch.utils.msgpack_tree import Bfloat16
 from flowtrain_stochastic_interpolation_torch.utils.rng import fold_seed
 from flowtrain_stochastic_interpolation_torch.utils.rng import generator as folded_generator
@@ -498,6 +524,10 @@ SMOKE_EVALUATIONS = (32 - 1) * 2 * 4
 # micro-steps (2 updates at b8 x 4), then the callback's 4 samples over 32
 # frames x 2 substeps (248 evaluations)
 SDE_SAMPLES, SDE_EPSILON, SDE_EVALUATIONS = 8, 0.5, 15 * 2
+# 10b′: the same pair while a buffer holds all of the card's free memory but this
+# margin, the sampler's own need with its trajectory (about 8 GiB at b8) and room
+# for the allocator
+SDE_PRESSURE_MARGIN_GIB = 16.0
 DISPATCH_BATCH, DISPATCH_FRAMES, DISPATCH_EVALUATIONS = 2, 4, 3 * 2 * 4
 ENSEMBLE_SAMPLES, ENSEMBLE_SDE_EVALUATIONS, ENSEMBLE_RK4_EVALUATIONS = 4, 7 * 2, 7 * 2 * 4
 COND_APP_STEPS, CALLBACK_SAMPLES, CALLBACK_EVALUATIONS = 8, 4, 31 * 2 * 4
@@ -543,10 +573,25 @@ SPATIAL_F32_REL_TOL = 1e-4
 # that agree (the two velocity fields differ by the roundings above at every evaluation)
 SPATIAL_DECODE_AGREEMENT = 0.9
 # the sample's budget: fewer than the recipe's 16 frames where one evaluation's time says
-# that they would pass it, so that phase 12 stays near 150 s (the rest of it takes about 65)
-SPATIAL_SAMPLE_BUDGET_S = 70.0
+# that they would pass it, so that phase 12 stays near 90 s (the rest of it takes about 65)
+# and the script's last phase line, with phase 13, under half of its time limit
+SPATIAL_SAMPLE_BUDGET_S = 20.0
 # 12c: the first sharded step's loss against the unsharded forward's on the same draws
 SPATIAL_LOSS_REL_TOL = 1e-2
+# phase 13 (the fifteenth slice): the 2-D family and the toys. 13a and 13b: a UNet2D at
+# 64² b8, bf16, dim 48, mults (1, 2, 4), 4 heads x 32, full attention at 32² and 16²:
+# K1 and K2 at 64² (4096 tokens, down and up), K3 at 32² (1024 tokens), einsum at 16²;
+# 13b samples it by RK4 over 16 frames x 2 substeps (120 evaluations)
+UNET2D = dict(dim=48, dim_mults=(1, 2, 4), data_channels=3, attn_heads=4, attn_dim_head=32,
+              full_attn=(False, True, True))
+UNET2D_SIDE, UNET2D_BATCH = 64, 8
+UNET2D_PER_FORWARD = {"folded_context": 2, "folded_project": 2, "flash_attention": 2}
+# 13c: the image toy at its defaults for this many steps, its loss then under this share
+# of its first; 13d: the 2-D toy at its defaults, the mean of this many samples of the
+# trained flow this near the mixture's (its standard error 0.024 a coordinate; the
+# app's 256 figure samples have 0.13)
+TOY_IMAGE_STEPS, TOY_LOSS_SHARE = 300, 0.8
+TOY2D_MEAN, TOY2D_MEAN_TOL, TOY2D_SAMPLES = (-0.4, -0.4), 0.15, 8192
 FOLDED = ("folded_context", "folded_project")
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
@@ -2239,6 +2284,27 @@ def phase_sde_and_dispatch(smi: str, rk4) -> dict:
     check(np.array_equal(first.decoded, second.decoded), "10b: one seed, two decodes")
     check(differ > 0, "10b: the SDE decodes as RK4 does")
 
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = torch.empty(max(free - int(SDE_PRESSURE_MARGIN_GIB * 2**30), 0), dtype=torch.uint8,
+                       device="cuda")
+    reset_counts()
+    pressed = [sample_unconditional(model, table, keep_trajectory=keep, **kw)
+               for keep in (True, False)]
+    counts_p = read_counts()
+    say("samplers", f"10b′ the same pair with {held.numel() / 2**30:.2f} GiB of the card's "
+        f"{free / 2**30:.2f} GiB free held by a buffer: {sum(pressed[0].seconds_per_batch):.3f} "
+        f"and {sum(pressed[1].seconds_per_batch):.3f} s; decodes equal to each other "
+        f"{np.array_equal(pressed[0].decoded, pressed[1].decoded)} and to 10b's "
+        f"{np.array_equal(pressed[0].decoded, first.decoded)}; launches {counts_p}")
+    del held
+    torch.cuda.empty_cache()
+    check(folded_only(counts_p, 12 * SDE_EVALUATIONS), f"10b′: launches {counts_p}")
+    check(np.array_equal(pressed[0].decoded, pressed[1].decoded),
+          "10b′: one seed, two decodes under memory pressure")
+    check(np.array_equal(pressed[0].decoded, first.decoded),
+          "10b′: the decodes under memory pressure differ from 10b's")
+
     dispatch = dict(t0=ic.t0, tf=ic.tf, n_frames=DISPATCH_FRAMES, substeps=ic.substeps,
                     method=ic.method, keep_trajectory=True)
     x0 = initial_noise(torch.Generator(device="cuda").manual_seed(3), DISPATCH_BATCH,
@@ -2265,7 +2331,8 @@ def phase_sde_and_dispatch(smi: str, rk4) -> dict:
           "10c: frame dispatch differs from the plain sampler")
     del model, framed, plain
     torch.cuda.empty_cache()
-    return {"samplers sde": counts, "samplers sde again": counts2, "samplers frame dispatch": counts_fd}
+    return {"samplers sde": counts, "samplers sde again": counts2,
+            "samplers sde under pressure": counts_p, "samplers frame dispatch": counts_fd}
 
 
 def phase_conditional_apps(smi: str) -> dict:
@@ -3085,6 +3152,143 @@ def phase_parallel(smi: str, peak_128=None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the 2-D family and the toys, the FLOP count, the profiling utils
+# (the fifteenth slice)
+# ---------------------------------------------------------------------------
+def unet2d_forward(timer) -> tuple:
+    """13a: the UNet2D's b8 64² bf16 forward on the card against f32 on the CPU,
+    its launches, and one forward traced by ``utils.profiling.trace``."""
+    model = UNet2D(**UNET2D, dtype=torch.bfloat16, device="cuda")
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(13))
+    cpu = UNet2D(**UNET2D, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn(UNET2D_BATCH, UNET2D_SIDE, UNET2D_SIDE, UNET2D["data_channels"], generator=gen)
+    t = torch.full((UNET2D_BATCH,), 0.5)  # exact in bf16
+    reset_counts()
+    with torch.inference_mode():
+        got = timer(model, x.cuda().bfloat16(), t.cuda())
+        launches = read_counts()
+        ref = cpu(x, t)
+    got = got.cpu()
+    rel = rel_l2(got, ref)
+    say("2d", f"13a UNet2D {UNET2D_SIDE}² b{UNET2D_BATCH} forward on the card (bf16, first call "
+        f"{timer.times[-1]:.3f} s, launches {launches}) vs f32 on the CPU: relative L2 error "
+        f"{rel:.3e} (tolerance {FORWARD_REL_TOL:g})")
+    check_finite({"13a forward": got})
+    expected = {name: UNET2D_PER_FORWARD.get(name, 0) for name in KERNELS}
+    check(launches == expected, f"13a: launches {launches}, expected {expected}")
+    check(rel < FORWARD_REL_TOL, f"13a: UNet2D forward relative error {rel:.3e}")
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir), torch.inference_mode():
+            model(x.cuda().bfloat16(), t.cuda())
+            torch.cuda.synchronize()
+        trace_file = Path(log_dir) / profiling.TRACE_FILE
+        size = trace_file.stat().st_size if trace_file.is_file() else 0
+    say("2d", f"13a profiling.trace of one forward: {profiling.TRACE_FILE}, {size} bytes")
+    check(size > 0, "13a: the trace file is missing or empty")
+    return model, launches
+
+
+def unet2d_sample(model, timer) -> dict:
+    """13b: RK4 over 16 frames x 2 substeps (120 evaluations) at b8 64²."""
+    ic = unconditional_64().inference
+    x0 = torch.randn(UNET2D_BATCH, UNET2D_SIDE, UNET2D_SIDE, UNET2D["data_channels"],
+                     generator=torch.Generator(device="cuda").manual_seed(14), device="cuda")
+    nfe = (ic.n_frames - 1) * ic.substeps * 4
+    reset_counts()
+    with torch.inference_mode():
+        final = timer(solve_ode_final, model, x0, t0=ic.t0, tf=ic.tf, n_frames=ic.n_frames,
+                      substeps=ic.substeps, method="rk4")
+    launches = read_counts()
+    seconds = timer.times[-1]
+    meta = UNet2D(**UNET2D, dtype=torch.bfloat16, device=flops.META).eval()
+    x_meta = torch.empty(x0.shape, device=flops.META)
+    with torch.no_grad():
+        forward = flops.count_conv_dot_flops(meta, x_meta, torch.empty(UNET2D_BATCH,
+                                                                      device=flops.META))
+    say("2d", f"13b UNet2D RK4 {ic.n_frames} frames x {ic.substeps} substeps ({nfe} evaluations) "
+        f"at {UNET2D_SIDE}² b{UNET2D_BATCH}: {seconds:.3f} s, "
+        f"{UNET2D_BATCH / seconds:.2f} images/s, "
+        f"{seconds / nfe * 1e3:.2f} ms per evaluation ({forward / 1e9:.2f} GFLOP a forward on "
+        f"meta: {forward * nfe / seconds / 1e12:.2f} TF/s); |x| max "
+        f"{float(final.abs().max()):.3f}; launches {launches}")
+    check_finite({"13b final state": final})
+    for name in KERNELS:
+        want = UNET2D_PER_FORWARD.get(name, 0) * nfe
+        check(launches[name] == want,
+              f"13b: {name} launched {launches[name]} times, expected {want}")
+    return launches
+
+
+def toys(timer) -> dict:
+    """13c: the image toy at its defaults for ``TOY_IMAGE_STEPS`` steps on the
+    synthetic images; 13d: the 2-D toy at its defaults."""
+    reset_counts()
+    result = timer(toy2d_images.train_and_sample, steps=TOY_IMAGE_STEPS, use_mnist=False,
+                   verbose=False, device="cuda")
+    images = read_counts()
+    lo, hi = result["sample_minmax"]
+    say("2d", f"13c toy2d_images (size 32, dim 16, b64, lr 2e-3, {result['source']}): "
+        f"{TOY_IMAGE_STEPS} steps in {result['train_seconds']} s "
+        f"({TOY_IMAGE_STEPS / max(result['train_seconds'], 1e-9):.1f} steps/s), "
+        f"{timer.times[-1]:.3f} s with the 9 x 4 RK4 grid; loss {result['loss_first']:.4f} -> "
+        f"{result['loss_last']:.4f}; samples in [{lo:.3f}, {hi:.3f}]; launches {images}")
+    check_finite({"13c samples": result["samples"]})
+    check(result["loss_last"] < TOY_LOSS_SHARE * result["loss_first"],
+          f"13c: loss {result['loss_first']:.4f} -> {result['loss_last']:.4f}")
+    check(-4.0 < lo < hi < 4.0, f"13c: samples in [{lo}, {hi}]")
+
+    reset_counts()
+    result = timer(toy2d.train_and_sample, verbose=False, device="cuda",
+                   n_samples=TOY2D_SAMPLES)
+    mixture = read_counts()
+    mean = result["final_mean"]
+    say("2d", f"13d toy2d (2000 steps, b512, {TOY2D_SAMPLES} samples): trained in "
+        f"{result['train_seconds']:.3f} s "
+        f"({2000 / result['train_seconds']:.1f} steps/s), {timer.times[-1]:.3f} s with the RK4 "
+        f"trajectory; loss {[round(loss, 4) for _, loss in result['losses']]}; final mean "
+        f"{[round(float(m), 4) for m in mean]} (mixture {list(TOY2D_MEAN)}); launches {mixture}")
+    check_finite({"13d trajectory": result["trajectory"]})
+    check(np.abs(mean - np.asarray(TOY2D_MEAN)).max() < TOY2D_MEAN_TOL,
+          f"13d: final mean {mean}")
+    return {"2d toy images": images, "2d toy mixture": mixture}
+
+
+def flop_reading(rk4, train_ms: float) -> None:
+    """13e: ``utils.flops`` on ``meta`` beside phase 9's and phase 8's times."""
+    cfg = unconditional_64()
+    forward = flops.forward_flops(cfg, APP_SAMPLES)
+    per_eval = sum(rk4.seconds_per_batch) / rk4.nfe
+    rate = forward / per_eval / 1e12
+    peak = PEAK_BF16_FLOP_PER_S / 1e12
+    step_cfg = flagship_train_config(None)
+    step = flops.micro_step_flops(step_cfg)
+    step_rate = step / (train_ms / 1e3) / 1e12
+    say("2d", f"13e utils.flops on meta: the flagship 64³ b{APP_SAMPLES} forward "
+        f"{forward / 1e12:.4f} TFLOP (products and convolutions); phase 9's app "
+        f"{per_eval * 1e3:.2f} ms per evaluation (of its {rk4.nfe}, decode included): "
+        f"{rate:.2f} TF/s, {rate / peak:.4f} of the {peak:g} TF/s bf16 dense peak; one "
+        f"b{step_cfg.data.batch_size} micro-step {step / 1e12:.4f} TFLOP, phase 8's median "
+        f"{train_ms:.1f} ms: {step_rate:.2f} TF/s, {step_rate / peak:.4f} of the peak")
+
+
+def phase_2d(rk4, train_ms: float) -> dict:
+    """Phase 13: 13a-13d timed by ``utils.profiling.StepTimer``, then 13e."""
+    start = time.perf_counter()
+    timer = profiling.StepTimer(warmup=0, device="cuda")
+    model, forward = unet2d_forward(timer)
+    launches = {"2d unet forward": forward, "2d unet sample": unet2d_sample(model, timer)}
+    del model
+    torch.cuda.empty_cache()
+    launches.update(toys(timer))
+    flop_reading(rk4, train_ms)
+    say("2d", f"StepTimer of 13a-13d: {[round(t, 3) for t in timer.times]} s, summary "
+        f"{timer.summary()}; phase 13 {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false); "
@@ -3127,9 +3331,10 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     launches.update(phase_v1(widths))
-    launches["train flagship"] = train(
+    flagship_train = train(
         "flagship", flagship_train_config(None), {"folded_context": 6, "folded_project": 6},
-        check_sampler=True)["launches"]
+        check_sampler=True)
+    launches["train flagship"] = flagship_train["launches"]
     launches["train fa16"] = train(
         "fa16", flagship_train_config(FA16),
         {"flash_attention": 2, "folded_context": 4, "folded_project": 4},
@@ -3145,6 +3350,7 @@ def main() -> int:
     launches_128, rows_128, worst_128, peak_128 = phase_128(smi)
     launches.update(launches_128)
     launches.update(phase_parallel(smi, peak_128))
+    launches.update(phase_2d(rk4, flagship_train["ms"]))
     for name, err in worst_128.items():
         worst[name] = max(worst[name], err)
 

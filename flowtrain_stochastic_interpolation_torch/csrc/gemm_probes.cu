@@ -344,6 +344,7 @@ gemm_stream(const __grid_constant__ CUtensorMap a_map, const bf16* __restrict__ 
           mma(acc[i][2 * p + 1], af[i], bf[p][2], bf[p][3]);
         }
     }
+    fence_proxy_async();  // the reads of stage j before the TMA refills it (as K1's)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[j]);  // this warp is done with stage j
     if (s % slices != slices - 1) continue;

@@ -324,6 +324,11 @@ __device__ __forceinline__ void context_tiles(const CUtensorMap& k_map, const CU
         mma(acc[2 * p], a[ks], bv[0], bv[1]);
         mma(acc[2 * p + 1], a[ks], bv[2], bv[3]);
       }
+    // this warp's reads of stage j (the generic proxy) ordered before the TMA
+    // (the async proxy) refills it. Without the fence a refill could land before
+    // the reads were done: now and then a launch returned other bits for the same
+    // operands (tools/sde_repro.py, its k1 round)
+    fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[j]);  // this warp is done with stage j
   }

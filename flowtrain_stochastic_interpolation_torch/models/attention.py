@@ -17,8 +17,8 @@ Port of ``flowtrain_stochastic_interpolation_tpu/models/attention.py``:
   on, at least 1024 query tokens and a head width that is a multiple of 8, it
   runs :func:`ops.flash_attention.flash_attention` (kernel K3 on the card, its
   plain f32 version on the CPU), as the JAX package's ``_sdpa`` dispatches;
-  otherwise einsum + softmax (the flagship's innermost stage has 4³ = 64
-  tokens, so it stays einsum).
+  otherwise (and on the ``meta`` device, which only counts) einsum + softmax
+  (the flagship's innermost stage has 4³ = 64 tokens, so it stays einsum).
 
 With a ``spatial_group`` (the JAX modules' ``spatial_axis``: the token axis
 sharded over the group, X slab by X slab), both take their sharded form
@@ -181,7 +181,8 @@ class Attention(_TokenAttention):
             out = ring_attention(q, k, v, self.spatial_group, mem_k=mk, mem_v=mv)
             return self.to_out(out.reshape(b, *spatial, hidden))
         q, k, v = self._split_with_memory(qkv)
-        if self.takes_flash(q.shape[1]):
+        # on meta (a FLOP count, utils.flops) the einsum route: the same products
+        if self.takes_flash(q.shape[1]) and not q.is_meta:
             out = flash_attention(q, k, v)
         else:
             logits = torch.einsum("bihd,bjhd->bhij", q, k) * self.dim_head**-0.5

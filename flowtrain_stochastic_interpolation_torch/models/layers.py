@@ -1,4 +1,5 @@
-"""Building blocks of the 3-D UNet, channels-last ``[B, X, Y, Z, C]``.
+"""Building blocks of the UNets, channels-last ``[B, X, Y, Z, C]`` (3-D) or
+``[B, H, W, C]`` (2-D).
 
 Port of ``flowtrain_stochastic_interpolation_tpu/models/layers.py``. Parameters
 are stored in float32; each layer computes in its ``dtype`` (bfloat16 on the
@@ -12,6 +13,10 @@ The JAX package's 3³ and 7³ convolutions pick among XLA formulations for the
 TPU (``ops/fat_conv.py``, ``ops/packed_conv.py``); all compute the same SAME
 convolution, which here is ``F.conv3d`` (cuDNN on the card) in the
 ``channels_last_3d`` memory format that the ``[B, X, Y, Z, C]`` layout is.
+
+The 2-D layers (``ndim=2``, the JAX ``UNet2D``'s) are flax ``nn.Conv``: a 3×3
+or 7×7 SAME :class:`Conv2d`, ``F.conv2d`` in ``channels_last``, which without
+a ``dtype`` promotes its input to the f32 params as a :class:`Dense` does.
 
 Parameter names follow the flax modules' (``kernel`` becomes ``weight``), so
 :func:`models.persistence.params_from_jax` maps one tree onto the other.
@@ -118,10 +123,42 @@ class SpatialConv3d(Conv3d):
         return halo_conv3d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.spatial_group)
 
 
-def conv_nd(in_channels: int, out_channels: int, kernel: int, *, spatial_group=None,
-            dtype: Optional[torch.dtype] = None, device=None) -> Conv3d:
-    """The 3-D SAME conv: a :class:`SpatialConv3d` with a ``spatial_group`` and a
-    kernel larger than 1, else a :class:`Conv3d`."""
+class Conv2d(nn.Module):
+    """2-D SAME convolution (stride 1, odd kernel, with bias) on ``[B, H, W, C]``:
+    flax ``nn.Conv``, whose compute dtype without a ``dtype`` is the input's and
+    the f32 params' promoted one. The weight is torch's ``[out, in, k, k]``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, *,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.padding = kernel // 2
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel, kernel, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        fmt = torch.channels_last
+        xc = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+        w = self.weight.to(dt).contiguous(memory_format=fmt)
+        y = F.conv2d(xc, w, self.bias.to(dt), padding=self.padding)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_nd(in_channels: int, out_channels: int, kernel: int, *, ndim: int = 3,
+            spatial_group=None, dtype: Optional[torch.dtype] = None, device=None) -> nn.Module:
+    """The SAME conv over ``ndim`` spatial axes: a :class:`Conv2d` in 2-D; in 3-D a
+    :class:`SpatialConv3d` with a ``spatial_group`` and a kernel larger than 1,
+    else a :class:`Conv3d`."""
+    if ndim == 2:
+        if spatial_group is not None:
+            raise ValueError("spatial parallelism is 3-D only")
+        return Conv2d(in_channels, out_channels, kernel, dtype=dtype, device=device)
     if spatial_group is not None and kernel > 1:
         return SpatialConv3d(in_channels, out_channels, kernel, spatial_group=spatial_group,
                              dtype=dtype, device=device)
@@ -243,7 +280,7 @@ class TimeMLP(nn.Module):
     ``learned_emb``, else RandomFourier."""
 
     def __init__(self, time_resolution: int, time_dim: int, *, sin_pos: bool = False,
-                 learned_emb: bool = True, bandwidth: float = 100.0, dtype=None, device=None):
+                 learned_emb: bool = False, bandwidth: float = 100.0, dtype=None, device=None):
         super().__init__()
         self.dtype = dtype
         if sin_pos:
@@ -273,12 +310,12 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
 class Block(nn.Module):
     """conv3 → RMSNorm → FiLM(scale+1, shift) → SiLU → dropout (in training only)."""
 
-    def __init__(self, dim_in: int, dim_out: int, *, dropout: float = 0.0, spatial_group=None,
-                 dtype=None, device=None):
+    def __init__(self, dim_in: int, dim_out: int, *, ndim: int = 3, dropout: float = 0.0,
+                 spatial_group=None, dtype=None, device=None):
         super().__init__()
         self.dropout = dropout
-        self.proj = conv_nd(dim_in, dim_out, 3, spatial_group=spatial_group, dtype=dtype,
-                            device=device)
+        self.proj = conv_nd(dim_in, dim_out, 3, ndim=ndim, spatial_group=spatial_group,
+                            dtype=dtype, device=device)
         self.norm = RMSNorm(dim_out, device=device)
 
     def forward(self, x: torch.Tensor,
@@ -298,21 +335,22 @@ class ResnetBlock(nn.Module):
     """Two Blocks with a time-FiLM on the first, plus a 1×1 residual; dropout in
     ``block1`` only, as the JAX package's ResnetBlock."""
 
-    def __init__(self, dim_in: int, dim_out: int, time_dim: int, *, dropout: float = 0.0,
-                 spatial_group=None, dtype=None, device=None):
+    def __init__(self, dim_in: int, dim_out: int, time_dim: int, *, ndim: int = 3,
+                 dropout: float = 0.0, spatial_group=None, dtype=None, device=None):
         super().__init__()
+        self.ndim = ndim
         self.mlp = Dense(time_dim, dim_out * 2, dtype=dtype, device=device)
-        self.block1 = Block(dim_in, dim_out, dropout=dropout, spatial_group=spatial_group,
+        self.block1 = Block(dim_in, dim_out, ndim=ndim, dropout=dropout,
+                            spatial_group=spatial_group, dtype=dtype, device=device)
+        self.block2 = Block(dim_out, dim_out, ndim=ndim, spatial_group=spatial_group,
                             dtype=dtype, device=device)
-        self.block2 = Block(dim_out, dim_out, spatial_group=spatial_group, dtype=dtype,
-                            device=device)
         self.res_conv = (Dense(dim_in, dim_out, dtype=dtype, device=device)
                          if dim_in != dim_out else None)
 
     def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h_t = self.mlp(F.silu(time_emb))
-        h_t = h_t.reshape(h_t.shape[0], 1, 1, 1, h_t.shape[-1])
+        h_t = h_t.reshape(h_t.shape[0], *(1,) * self.ndim, h_t.shape[-1])
         h = self.block1(x, tuple(torch.chunk(h_t, 2, dim=-1)), generator)
         h = self.block2(h)
         if self.res_conv is not None:

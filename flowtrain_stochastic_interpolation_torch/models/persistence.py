@@ -9,7 +9,8 @@ tree's new names, ``init_conv_ATb`` or ``downs_0_atb_mix``, hold the same kinds
 of leaves). It is the reverse of the JAX package's ``convert_unet3d``, leaf by
 leaf:
 
-* conv kernels ``[k, k, k, in, out]`` (DHWIO) -> ``weight [out, in, k, k, k]``;
+* conv kernels ``[k, k, k, in, out]`` (DHWIO) -> ``weight [out, in, k, k, k]``,
+  and in 2-D ``[k, k, in, out]`` (HWIO) -> ``[out, in, k, k]``;
 * Dense kernels ``[in, out]`` -> ``weight [out, in]``;
 * biases, RMSNorm ``g``, ``mem_kv [2, h, n_mem, d]`` and the Fourier
   ``freqs`` / ``phases`` as they are.
@@ -69,6 +70,8 @@ def _convert_leaf(path: Tuple[str, ...], value: Any) -> Tuple[str, torch.Tensor]
     if name == "kernel":
         if arr.ndim == 5:      # conv DHWIO -> OIDHW
             arr = arr.transpose(4, 3, 0, 1, 2)
+        elif arr.ndim == 4:    # 2-D conv HWIO -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 2:    # Dense [in, out] -> Linear [out, in]
             arr = arr.T
         else:
@@ -142,6 +145,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         if name == "weight":
             if arr.ndim == 5:      # conv OIDHW -> DHWIO
                 arr = arr.transpose(2, 3, 4, 1, 0)
+            elif arr.ndim == 4:    # 2-D conv OIHW -> HWIO
+                arr = arr.transpose(2, 3, 1, 0)
             elif arr.ndim == 2:    # Linear [out, in] -> Dense [in, out]
                 arr = arr.T
             else:
@@ -294,12 +299,15 @@ def _finish(m: _Mapper, return_constants: bool):
 def convert_unet3d(sd: Mapping[str, Any], *, n_stages: int,
                    full_attn: Optional[Sequence[bool]] = None, attn_enabled: bool = True,
                    time_sin_pos: bool = False, time_learned_emb: bool = True,
-                   src_prefix: str = "", return_constants: bool = False) -> Any:
-    """The reference ``Unet3D`` state dict as flax params (and, with
-    ``return_constants``, the ``constants`` collection). Each stage's module
-    list is [res1, res2, attn, resample]."""
+                   src_prefix: str = "", ndim: int = 3, return_constants: bool = False) -> Any:
+    """The reference ``Unet3D`` state dict (``Unet2D``'s with ``ndim=2``) as flax
+    params (and, with ``return_constants``, the ``constants`` collection). Each
+    stage's module list is [res1, res2, attn, resample]; a 2-D resample is a
+    Sequential whose second module holds the weights (the space-to-depth 1×1
+    conv down, the 3×3 conv after the nearest upsampling up)."""
     m = _Mapper(sd, src_prefix)
     fa = _resolve_full_attn(full_attn, n_stages)
+    resample = "3.conv" if ndim == 3 else "3.1"
     m.conv("init_conv", "init_conv")
     m.time_mlp("time_mlp", "time_mlp", sin_pos=time_sin_pos, learned=time_learned_emb)
     for i in range(n_stages):
@@ -310,7 +318,7 @@ def convert_unet3d(sd: Mapping[str, Any], *, n_stages: int,
         if i >= n_stages - 1:
             m.conv(f"downs.{i}.3", f"downs_{i}_downsample")
         else:
-            m.conv(f"downs.{i}.3.conv", f"downs_{i}_downsample/conv", dense=True)
+            m.conv(f"downs.{i}.{resample}", f"downs_{i}_downsample/conv", dense=True)
     m.resnet("mid_block1", "mid_block1")
     if attn_enabled:
         m.full_attn("mid_attn", "mid_attn")
@@ -324,7 +332,7 @@ def convert_unet3d(sd: Mapping[str, Any], *, n_stages: int,
         if i == n_stages - 1:
             m.conv(f"ups.{i}.3", f"ups_{i}_upsample")
         else:
-            m.conv(f"ups.{i}.3.conv", f"ups_{i}_upsample/conv")
+            m.conv(f"ups.{i}.{resample}", f"ups_{i}_upsample/conv")
     m.resnet("final_res_block", "final_res_block")
     m.conv("final_conv", "final_conv", dense=True)
     return _finish(m, return_constants)

@@ -1,10 +1,17 @@
-"""The 3-D attention UNet that predicts the stochastic-interpolation velocity.
+"""The attention UNets that predict the stochastic-interpolation velocity.
 
-Port of ``flowtrain_stochastic_interpolation_tpu/models/unet.py::UNet3D``:
+Port of ``flowtrain_stochastic_interpolation_tpu/models/unet.py``:
 7³ init conv, per-stage [res, res, attn, resample] downs, full-attention
 bottleneck, mirrored ups with two skip concats per stage, a final res block on
 the concat with the init residual, and a 1×1 out conv. Layout is channels-last
 ``[B, X, Y, Z, C]``; time is a ``[B]`` vector; the output is float32.
+
+:class:`UNet2D` (``UNet(ndim=2)``) is the 2-D twin for the toy experiments, on
+``[B, H, W, C]``: 7×7 and 3×3 convs (:class:`models.layers.Conv2d`), nearest ×2
+upsampling (:class:`Upsample2D`) and space-to-depth downsampling
+(:class:`Downsample2D`) in place of the trilinear resizes, and the same blocks
+and attention, whose dispatch rules read the token count whatever the spatial
+shape.
 
 Every constructor option of the flax module is here: the time embedding
 (sinusoidal with ``time_sin_pos``, else LearnedFourier with
@@ -72,8 +79,36 @@ def _cast_tuple(v, length: int) -> tuple:
     return (v,) * length
 
 
+class Upsample2D(nn.Module):
+    """Nearest ×2 + 3×3 conv on ``[B, H, W, C]``."""
+
+    def __init__(self, ch_in: int, ch_out: int, *, dtype=None, device=None):
+        super().__init__()
+        self.conv = conv_nd(ch_in, ch_out, 3, ndim=2, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+        return self.conv(x)
+
+
+class Downsample2D(nn.Module):
+    """Space-to-depth (2×2 patches, channels in ``(c, p1, p2)`` order, the
+    reference's) + a Dense, on ``[B, H, W, C]``."""
+
+    def __init__(self, ch_in: int, ch_out: int, *, dtype=None, device=None):
+        super().__init__()
+        self.conv = Dense(ch_in * 4, ch_out, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
+        return self.conv(x.reshape(b, h // 2, w // 2, c * 4))
+
+
 class UNet(nn.Module):
-    """3-D attention UNet; the arguments mirror the flax module's attributes."""
+    """Attention UNet over ``ndim`` (3 or 2) spatial axes; the arguments mirror
+    the flax module's attributes."""
 
     def __init__(
         self,
@@ -84,7 +119,7 @@ class UNet(nn.Module):
         time_resolution: int = 64,
         time_sin_pos: bool = False,
         time_bandwidth: float = 100.0,
-        time_learned_emb: bool = True,
+        time_learned_emb: bool = False,
         attn_enabled: bool = True,
         attn_dim_head: Union[int, Sequence[int]] = 64,
         attn_heads: Union[int, Sequence[int]] = 4,
@@ -97,9 +132,13 @@ class UNet(nn.Module):
         dtype: Optional[torch.dtype] = None,
         device=None,
         spatial_group=None,
+        ndim: int = 3,
     ):
         super().__init__()
+        if ndim not in (2, 3):
+            raise ValueError(f"ndim must be 2 or 3, got {ndim}")
         self.dim = dim
+        self.ndim = ndim
         self.spatial_group = spatial_group
         self.self_condition = self_condition
         self.remat_blocks = remat_blocks
@@ -114,6 +153,9 @@ class UNet(nn.Module):
         time_dim = dim * 4
         kw = dict(dtype=dtype, device=device)
         sp = dict(kw, spatial_group=spatial_group)
+        nd = dict(sp, ndim=ndim)  # a 2-D conv raises on a spatial_group: 3-D only
+        up, down = (Upsample, Downsample) if ndim == 3 else (Upsample2D, Downsample2D)
+        resample = sp if ndim == 3 else kw
 
         def attn(ch, is_full, h, dh):
             if not attn_enabled:
@@ -124,9 +166,9 @@ class UNet(nn.Module):
                                    folded_vjp=folded_attn_vjp, **sp)
 
         def res(ch_in, ch_out):
-            return ResnetBlock(ch_in, ch_out, time_dim, dropout=dropout, **sp)
+            return ResnetBlock(ch_in, ch_out, time_dim, dropout=dropout, **nd)
 
-        self._input_convs(data_channels, dim, sp)
+        self._input_convs(data_channels, dim, nd)
         self.time_mlp = TimeMLP(time_resolution, time_dim, sin_pos=time_sin_pos,
                                 learned_emb=time_learned_emb, bandwidth=time_bandwidth, **kw)
 
@@ -137,8 +179,8 @@ class UNet(nn.Module):
             setattr(self, f"downs_{i}_attn", attn(dim_in, full[i], heads[i], dim_heads[i]))
             skip_dims += [dim_in, dim_in]
             last = i >= n_stages - 1
-            setattr(self, f"downs_{i}_downsample",
-                    conv_nd(dim_in, dim_out, 3, **sp) if last else Downsample(dim_in, dim_out, **sp))
+            setattr(self, f"downs_{i}_downsample", conv_nd(dim_in, dim_out, 3, **nd) if last
+                    else down(dim_in, dim_out, **resample))
 
         mid_dim = dims[-1]
         self.mid_block1 = res(mid_dim, mid_dim)
@@ -154,7 +196,7 @@ class UNet(nn.Module):
             setattr(self, f"ups_{i}_attn", attn(dim_out, fa, hh, dh))
             last = i == n_stages - 1
             setattr(self, f"ups_{i}_upsample",
-                    conv_nd(dim_out, dim_in, 3, **sp) if last else Upsample(dim_out, dim_in, **sp))
+                    conv_nd(dim_out, dim_in, 3, **nd) if last else up(dim_out, dim_in, **resample))
             ch = dim_in
 
         self.final_res_block = res(ch + dim, dim)
@@ -203,17 +245,18 @@ class UNet(nn.Module):
 
     def check_spatial(self, x: torch.Tensor) -> None:
         """Each (local) spatial dim must divide by the downsampling factor."""
-        for d in x.shape[1:4]:
+        spatial = tuple(x.shape[1:1 + self.ndim])
+        for d in spatial:
             if d % self.downsample_factor:
                 raise ValueError(
-                    f"spatial dims {tuple(x.shape[1:4])} must be divisible by "
+                    f"spatial dims {spatial} must be divisible by "
                     f"{self.downsample_factor}"
                 )
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 x_self_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Velocity ``[B, X, Y, Z, C]`` f32; ``generator`` draws the dropout masks
+        """Velocity ``[B, *spatial, C]`` f32; ``generator`` draws the dropout masks
         in training; ``x_self_cond`` is the self-conditioning input (zeros when
         None) of a model built with ``self_condition``."""
         self.check_spatial(x)
@@ -288,3 +331,10 @@ class UNet(nn.Module):
 
 
 UNet3D = UNet
+
+
+class UNet2D(UNet):
+    """The 2-D attention UNet: :class:`UNet` with ``ndim=2``."""
+
+    def __init__(self, dim: int, *args, **kwargs):
+        super().__init__(dim, *args, ndim=2, **kwargs)

@@ -112,6 +112,24 @@ from {PACKAGE}.parallel.spatial import halo_conv3d, ring_attention, sharded_line
 from {PACKAGE}.train.shard_map_step import make_shard_map_train_step, make_spatial_train_step
 from {PACKAGE}.inference import make_spatial_sampler
 assert create_mesh().axis_names == ("data",) and not maybe_initialize()
+# the fifteenth slice: the 2-D family, the toys, the utils and the last apps
+from {PACKAGE}.models import UNet2D, Unet2D, VelocityMLP
+from {PACKAGE}.models.unet import Downsample2D, Upsample2D
+from {PACKAGE}.data.toy import GaussianMixed, get_cifar10, get_fashion_mnist, synthetic_images
+from {PACKAGE}.utils import debug, flops, profiling, volview
+from {PACKAGE}.apps import paper_figures, tensorprocessor, toy2d, toy2d_images
+from {PACKAGE}.tools import sde_repro
+net = UNet2D(dim=8, dim_mults=(1, 2), attn_heads=2, attn_dim_head=8, device="cpu")
+assert net(torch.zeros(1, 8, 8, 3), torch.zeros(1)).shape == (1, 8, 8, 3)
+assert VelocityMLP(device="cpu")(torch.zeros(4, 2), torch.zeros(4)).shape == (4, 2)
+assert GaussianMixed(device="cpu").sample(torch.Generator(), 5).shape == (5, 2)
+assert synthetic_images(torch.Generator(), 2, 8).shape == (2, 8, 8, 1)
+assert flops.forward_flops(tiny_test(), 1) > 0
+debug.check_finite({{"x": torch.zeros(2)}})
+assert profiling.StepTimer().summary() == {{}}
+decoded = tensorprocessor.decode_with_loaded_embedding(
+    torch.zeros(2, 2, 2, 18).numpy(), tensorprocessor.load_embedding(None), device="cpu")
+assert decoded.shape == (2, 2, 2)
 assert not any(n.split(".")[0] in {POISONED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), "modules")
 """
@@ -147,7 +165,8 @@ def test_spawned_ranks_import_no_jax():
 def test_importing_the_app_runs_nothing(tmp_path):
     apps = ROOT / PACKAGE / "apps"
     before = sorted(p.name for p in apps.iterdir())
-    names = ("unconditional", "conditional", "inference_experiments")
+    names = ("unconditional", "conditional", "inference_experiments", "toy2d", "toy2d_images",
+             "paper_figures", "tensorprocessor")
     code = "; ".join(f"import {PACKAGE}.apps.{n} as {n}; print({n}.main)" for n in names)
     proc = subprocess.run(
         [sys.executable, "-c", code],
@@ -155,7 +174,7 @@ def test_importing_the_app_runs_nothing(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert len(lines) == 3 and all(line.startswith("<function main") for line in lines)
+    assert len(lines) == len(names) and all(line.startswith("<function main") for line in lines)
     assert proc.stderr == ""
     assert sorted(p.name for p in apps.iterdir()) == before and not any(tmp_path.iterdir())
 

@@ -14,7 +14,9 @@ and a frozen ``self.embedding``, and its ``.ckpt`` files hold:
 :func:`write_checkpoint` builds such a file from flax-layout trees (the
 port's :func:`models.persistence.variables_to_jax` of a seeded model), under
 the keys that the converter's ``_Mapper`` reads: the mirror image of
-``convert_unet3d`` / ``convert_unet3d_cond``. Only torch and numpy are used,
+``convert_unet3d`` / ``convert_unet3d_cond``; with ``ndim=2`` the state dict is
+the reference ``Unet2D``'s (kernels ``[out, in, k, k]``, gains ``[1, C, 1, 1]``,
+each resample a Sequential whose module 1 holds the weights). Only torch and numpy are used,
 so ``chip_smoke.py`` loads this file by its path.
 """
 
@@ -35,9 +37,10 @@ class _Writer:
     ``constants`` trees; ``trainable`` names the keys the EMA shadow covers."""
 
     def __init__(self, params: Mapping[str, Any], constants: Mapping[str, Any],
-                 conditional: bool):
+                 conditional: bool, ndim: int = 3):
         self.params, self.constants = params, constants
         self.conditional = conditional
+        self.ndim = ndim
         self.sd: Dict[str, torch.Tensor] = {}
         self.trainable = set()
 
@@ -61,10 +64,10 @@ class _Writer:
 
     def conv(self, src: str, dst: str, *, dense: bool = False) -> None:
         k = np.asarray(self._leaf(f"{dst}/kernel"))
-        if dense:  # flax Dense [in, out] -> 1×1 conv [out, in, 1, 1, 1]
-            w = k.T.reshape(k.shape[1], k.shape[0], 1, 1, 1)
-        else:      # flax [k, k, k, in, out] -> [out, in, k, k, k]
-            w = np.transpose(k, (4, 3, 0, 1, 2))
+        if dense:  # flax Dense [in, out] -> 1×1 conv [out, in, 1, 1(, 1)]
+            w = k.T.reshape(k.shape[1], k.shape[0], *(1,) * self.ndim)
+        else:      # flax [k, k(, k), in, out] -> [out, in, k, k(, k)]
+            w = np.transpose(k, (k.ndim - 1, k.ndim - 2, *range(k.ndim - 2)))
         self.put(f"{src}.weight", w)
         if self._has(f"{dst}/bias"):
             self.put(f"{src}.bias", self._leaf(f"{dst}/bias"))
@@ -76,7 +79,7 @@ class _Writer:
 
     def rmsnorm(self, src: str, dst: str) -> None:
         g = np.asarray(self._leaf(f"{dst}/g"))
-        self.put(f"{src}.g", g.reshape(1, -1, 1, 1, 1))
+        self.put(f"{src}.g", g.reshape(1, -1, *(1,) * self.ndim))
 
     def resnet(self, src: str, dst: str) -> None:
         mlp = "time_mlp" if self.conditional else "mlp"
@@ -123,11 +126,14 @@ class _Writer:
 def reference_state_dict(params: Mapping[str, Any], constants: Optional[Mapping[str, Any]],
                          *, conditional: bool, n_stages: int,
                          full_attn: Optional[Sequence[bool]] = None, attn_enabled: bool = True,
-                         time_sin_pos: bool = False, time_learned_emb: bool = True):
-    """``(state_dict, trainable keys)`` of the reference UNet (``Unet3D``, or
-    ``Unet3DCond`` v3 with ``conditional``) holding the flax trees' values."""
-    w = _Writer(params, constants or {}, conditional)
+                         time_sin_pos: bool = False, time_learned_emb: bool = True,
+                         ndim: int = 3):
+    """``(state_dict, trainable keys)`` of the reference UNet (``Unet3D``,
+    ``Unet2D`` with ``ndim=2``, or ``Unet3DCond`` v3 with ``conditional``)
+    holding the flax trees' values."""
+    w = _Writer(params, constants or {}, conditional, ndim)
     fa = tuple(full_attn) if full_attn else (False,) * (n_stages - 1) + (True,)
+    resample = "conv" if ndim == 3 else "1"
     if conditional:
         w.conv("init_conv_ATb", "init_conv_ATb")
         w.conv("init_conv_x", "init_conv_x")
@@ -143,7 +149,7 @@ def reference_state_dict(params: Mapping[str, Any], constants: Optional[Mapping[
         if i == n_stages - 1:
             w.conv(f"downs.{i}.{off + 3}", f"downs_{i}_downsample")
         else:
-            w.conv(f"downs.{i}.{off + 3}.conv", f"downs_{i}_downsample/conv", dense=True)
+            w.conv(f"downs.{i}.{off + 3}.{resample}", f"downs_{i}_downsample/conv", dense=True)
     w.resnet("mid_block1", "mid_block1")
     if attn_enabled:
         w.attn("mid_attn", "mid_attn", True)
@@ -157,7 +163,7 @@ def reference_state_dict(params: Mapping[str, Any], constants: Optional[Mapping[
         if i == n_stages - 1:
             w.conv(f"ups.{i}.{off + 3}", f"ups_{i}_upsample")
         else:
-            w.conv(f"ups.{i}.{off + 3}.conv", f"ups_{i}_upsample/conv")
+            w.conv(f"ups.{i}.{off + 3}.{resample}", f"ups_{i}_upsample/conv")
     w.resnet("final_res_block", "final_res_block")
     w.conv("final_conv", "final_conv", dense=True)
     return w.sd, w.trainable
