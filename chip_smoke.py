@@ -262,9 +262,30 @@ Phases, each printed on one flushed line with the seconds since start:
       peak beside phase 9's per-evaluation time and phase 8's median (a
       printed line, not a benchmark).
    ``utils.debug.check_finite`` holds every state the phase produces.
+14. the demo and trace tools, the sixteenth slice's main paths, each through its
+   ``main`` as a user runs it, in a temporary directory, cut (``DEMO_*``):
+   a. ``tools.train_demo`` on the flagship at b4 for 20 steps, then ``--resume``
+      for 5 more: the resume message, ``metrics.csv``'s rows at steps 0, 10, 19,
+      20 and 24, its 4 samples (b8, 8 evaluations); K1 and K2 6 times per
+      micro-step and per evaluation, as phase 8 holds them;
+   b. ``tools.export_weights`` of its checkpoint, read back by
+      ``load_release_weights`` (299 bf16 leaves, step 25, the run's config), the
+      release's 64³ b1 forward against the trained weights rounded to bf16 as
+      the release stores them, at ``FORWARD_REL_TOL`` (and, printed, against
+      the unrounded weights);
+   c. ``tools.sample_from_ckpt`` from that release at b8 (4 evaluations), then
+      ``tools.eval_samples`` on what it wrote (its report's keys; no quality
+      threshold after 25 steps);
+   d. the conditional ``tools.train_demo`` for 8 micro-steps at b2 x 4 with its
+      ensemble of 4 (8 evaluations), then ``tools.analyze_cond_demo``, whose
+      observed-voxel accuracy from the redrawn mask must equal the demo's;
+   e. ``tools.trace_forward`` (2 traced b8 forwards) and ``tools.trace_summary``:
+      its buckets within 5% of the profiler's own kernel total, K1 and K2 in
+      the hand-written bucket;
+   f. ``tools.profile_breakdown --quick``.
 
 The launch counts are set to 0 just before each main-path run (phases 4a-4c,
-5, 5b, 7, 8, 9, 10, 11, 12 (in each rank) and 13) and read just after it. Then
+5, 5b, 7, 8, 9, 10, 11, 12 (in each rank), 13 and 14) and read just after it. Then
 one JSON line per kernel (``{"kernels": [...]}``), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
@@ -336,6 +357,16 @@ from flowtrain_stochastic_interpolation_torch.tools import bench_folded
 from flowtrain_stochastic_interpolation_torch.tools import bench_gemm as bg
 from flowtrain_stochastic_interpolation_torch.tools import bench_mma_shapes as bms
 from flowtrain_stochastic_interpolation_torch.tools import bench_tap_conv as btc
+from flowtrain_stochastic_interpolation_torch.tools import (
+    analyze_cond_demo,
+    eval_samples,
+    export_weights,
+    profile_breakdown,
+    sample_from_ckpt,
+    trace_forward,
+    trace_summary,
+    train_demo,
+)
 from flowtrain_stochastic_interpolation_torch.parallel import collectives, create_mesh, shard_batch
 from flowtrain_stochastic_interpolation_torch.parallel.launch import spawn
 from flowtrain_stochastic_interpolation_torch.solvers import solve_ode_final
@@ -343,7 +374,7 @@ from flowtrain_stochastic_interpolation_torch.train import loop as train_loop
 from flowtrain_stochastic_interpolation_torch.train import objectives
 from flowtrain_stochastic_interpolation_torch.train import steps as train_steps
 from flowtrain_stochastic_interpolation_torch.train.callbacks import InferenceCallback
-from flowtrain_stochastic_interpolation_torch.train.checkpoint import find_steps
+from flowtrain_stochastic_interpolation_torch.train.checkpoint import CheckpointManager, find_steps
 from flowtrain_stochastic_interpolation_torch.train.loop import (
     build_model,
     init_model_variables,
@@ -592,6 +623,16 @@ UNET2D_PER_FORWARD = {"folded_context": 2, "folded_project": 2, "flash_attention
 # app's 256 figure samples have 0.13)
 TOY_IMAGE_STEPS, TOY_LOSS_SHARE = 300, 0.8
 TOY2D_MEAN, TOY2D_MEAN_TOL, TOY2D_SAMPLES = (-0.4, -0.4), 0.15, 8192
+# phase 14 (the sixteenth slice): the demo and trace tools through their main(), cut:
+# the flagship demo for 20 steps at b4, then resumed for 5 more; the conditional demo
+# for 8 micro-steps at b2 x accumulation 4 (two updates) at the JAX demo's lr 2.5e-4;
+# every sampler over DEMO_FRAMES frames (the unconditional b8 and the conditional
+# ensemble of 4: (2 - 1) x 2 substeps x 4 stages = 8 evaluations; sample_from_ckpt at
+# 1 substep: 4); the trace over 2 forwards at b8. Its buckets must sum to the
+# profiler's own kernel total within DEMO_TRACE_REL_TOL.
+DEMO_STEPS, DEMO_RESUMED, DEMO_COND_STEPS, DEMO_FRAMES = 20, 25, 8, 2
+DEMO_EVALUATIONS, DEMO_SAMPLE_EVALUATIONS = (DEMO_FRAMES - 1) * 2 * 4, (DEMO_FRAMES - 1) * 4
+DEMO_TRACE_ITERS, DEMO_TRACE_REL_TOL = 2, 0.05
 FOLDED = ("folded_context", "folded_project")
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
@@ -3289,6 +3330,180 @@ def phase_2d(rk4, train_ms: float) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the demo and trace tools (the sixteenth slice)
+# ---------------------------------------------------------------------------
+def demo_counts(label: str, counts: dict, forwards: int) -> None:
+    """Check that K1 and K2 launched 6 times in each of ``forwards`` forwards of
+    the flagship's width (a micro-step's forward, or a velocity evaluation) and
+    no other kernel ran."""
+    check(folded_only(counts, 6 * forwards),
+          f"14 {label}: launches {counts}, expected K1 and K2 {6 * forwards} times each")
+
+
+def demo_train(root: Path, smi: str) -> dict:
+    """14a: ``tools.train_demo`` on the flagship at b4, then resumed; 14b:
+    ``tools.export_weights`` of its checkpoint, read back by
+    ``load_release_weights``, its forward against the trained model's."""
+    launches = {}
+    out = root / "train_demo"
+    for label, steps, resumed in (("demo train", DEMO_STEPS, 0),
+                                  ("demo resume", DEMO_RESUMED, DEMO_STEPS)):
+        reset_counts()
+        start = time.perf_counter()
+        summary, text = run_app(["--steps", str(steps), "--out", str(out), "--n-frames",
+                                 str(DEMO_FRAMES)] + (["--resume"] if resumed else []),
+                                main=train_demo.main)
+        launches[label] = counts = read_counts()
+        seconds = time.perf_counter() - start
+        say("demo", f"14a train_demo {resumed} -> {steps} steps at b4: {seconds:.1f} s (loop "
+            f"{summary['elapsed_s']} s), loss {summary['loss_first']} -> {summary['loss_last']}, "
+            f"air above / below {summary['air_frac_top']} / {summary['air_frac_bottom']}; "
+            f"launches {counts}; {smi}")
+        check((f"resumed from step {DEMO_STEPS}" in text) == bool(resumed),
+              f"14a {label}: resume message {'missing' if resumed else 'unexpected'}")
+        check(np.isfinite([summary["loss_first"], summary["loss_last"]]).all(),
+              f"14a {label}: non-finite loss")
+        demo_counts(label, counts, steps - resumed + DEMO_EVALUATIONS)
+    rows = [line.split(",")[0] for line in (out / "metrics.csv").read_text().splitlines()]
+    check(rows == ["step", "0", "10", str(DEMO_STEPS - 1), "20", str(DEMO_RESUMED - 1)],
+          f"14a: metrics.csv steps {rows}")
+    check(len(list(out.glob("sample_*.npy"))) == 4, "14a: sample files missing")
+
+    release = root / "release"
+    size = export_weights.export(str(out / "ckpt"), str(release), note="chip_smoke phase 14")
+    tree, config, meta = load_release_weights(str(release), cast_to=None)
+    leaves, values, all_bf16 = count_leaves(tree["params"])
+    check((leaves, values, all_bf16) == (RELEASE_LEAVES, RELEASE_VALUES, True)
+          and meta["step"] == DEMO_RESUMED and config == train_demo.demo_config(
+              train_demo.parse_arguments(["--steps", str(DEMO_RESUMED)])),
+          f"14b: release of {leaves} leaves, {values} values, bf16 {all_bf16}, meta {meta}")
+    trained, _, state = init_train_state(config)
+    CheckpointManager(str(out / "ckpt")).restore(state)
+    exported = build_model(config, device="cuda")
+    exported.load_state_dict(state_dict_from_release(load_release_weights(str(release))[0],
+                                                     exported, use_ema=False))
+    x = torch.randn(1, 64, 64, 64, config.data.embedding_dim, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(14))
+    t = torch.full((1,), 0.5, device="cuda")
+    reset_counts()
+    with torch.inference_mode():
+        unrounded, got = trained.eval()(x, t), exported.eval()(x, t)
+        # the release stores every float leaf in bf16 (the JAX format): the
+        # trained weights rounded so are what its forward must reproduce
+        for p in trained.parameters():
+            p.copy_(p.bfloat16().float())
+        want = trained(x, t)
+    launches["demo export forward"] = counts = read_counts()
+    rel, rel_f32 = rel_l2(got, want), rel_l2(got, unrounded)
+    say("demo", f"14b export_weights: {size} bytes ({leaves} bf16 leaves, step {meta['step']}); "
+        f"the release's 64³ b1 forward against the trained weights rounded to bf16: relative "
+        f"L2 {rel:.3e} (tolerance {FORWARD_REL_TOL:g}); against the unrounded f32 weights "
+        f"{rel_f32:.3e} (bf16 LearnedFourier frequencies move the phase of t = 0.5); launches "
+        f"{counts}")
+    demo_counts("export forward", counts, 3)
+    check(rel < FORWARD_REL_TOL, f"14b: exported forward relative error {rel:.3e}")
+    del trained, exported, state
+    torch.cuda.empty_cache()
+    return launches, release
+
+
+def demo_sample(root: Path, release: Path, smi: str) -> dict:
+    """14c: ``tools.sample_from_ckpt`` from the exported release at b8, then
+    ``tools.eval_samples`` on what it wrote."""
+    out = root / "samples"
+    reset_counts()
+    summary, _ = run_app(["--ckpt", str(release), "--out", str(out), "--n-frames",
+                          str(DEMO_FRAMES), "--substeps", "1"], main=sample_from_ckpt.main)
+    counts = read_counts()
+    demo_counts("sample_from_ckpt", counts, DEMO_SAMPLE_EVALUATIONS)
+    report, _ = run_app(["--samples", str(out / "sample_*.npy"), "--json-out",
+                         str(out / "eval.json")], main=eval_samples.main)
+    keys = {"n_samples", "sample_shape", "category_tv_distance", "air_fraction",
+            "air_profile_mad", "air_profile_generated_bottom_mid_top",
+            "air_profile_prior_bottom_mid_top", "categories_per_sample",
+            "category_freq_generated", "category_freq_prior"}
+    say("demo", f"14c sample_from_ckpt b8 ({DEMO_SAMPLE_EVALUATIONS} evaluations): "
+        f"{summary['seconds_per_batch']} s, {summary['n_categories_used']} categories; "
+        f"eval_samples: TV {report['category_tv_distance']}, air-profile MAD "
+        f"{report['air_profile_mad']} (a report: no threshold after {DEMO_RESUMED} steps); "
+        f"launches {counts}; {smi}")
+    check(set(report) == keys and report["n_samples"] == 4, f"14c: eval report {report}")
+    return {"demo sample": counts}
+
+
+def demo_conditional(root: Path, smi: str) -> dict:
+    """14d: the conditional ``tools.train_demo`` at b2 x 4, then
+    ``tools.analyze_cond_demo`` on its ensemble."""
+    out = root / "train_demo_cond"
+    reset_counts()
+    start = time.perf_counter()
+    summary, _ = run_app(["--conditional", "--steps", str(DEMO_COND_STEPS), "--batch-size", "2",
+                          "--accum", "4", "--lr", "2.5e-4", "--out", str(out), "--n-frames",
+                          str(DEMO_FRAMES)], main=train_demo.main)
+    counts = read_counts()
+    report, _ = run_app(["--dir", str(out)], main=analyze_cond_demo.main)
+    say("demo", f"14d conditional train_demo {DEMO_COND_STEPS} micro-steps at b2 x 4: "
+        f"{time.perf_counter() - start:.1f} s, loss {summary['loss_first']} -> "
+        f"{summary['loss_last']}; ensemble of 4 ({DEMO_EVALUATIONS} evaluations): observed-"
+        f"voxel accuracy {summary['observed_voxel_accuracy']}, analyze_cond_demo "
+        f"{report['obs_acc_overall']} (the same mask redrawn); launches {counts}; {smi}")
+    demo_counts("conditional", counts, DEMO_COND_STEPS + DEMO_EVALUATIONS)
+    check(report["obs_acc_overall"] == summary["observed_voxel_accuracy"]
+          and report["n_samples"] == 4, f"14d: analysis {report} against {summary}")
+    return {"demo conditional": counts}
+
+
+def demo_trace(root: Path, smi: str) -> dict:
+    """14e: ``tools.trace_forward`` (2 traced b8 forwards) and
+    ``tools.trace_summary``; 14f: ``tools.profile_breakdown --quick``."""
+    launches = {}
+    reset_counts()
+    traced, _ = run_app(["--iters", str(DEMO_TRACE_ITERS), "--out", str(root / "trace")],
+                        main=trace_forward.main)
+    launches["demo trace"] = counts = read_counts()
+    demo_counts("trace_forward", counts, 3 + DEMO_TRACE_ITERS)  # 2 warm-up, 1 timed
+    summary = trace_summary.summarize(traced["trace"], verbose=False)
+    buckets = sum(summary["buckets"].values())
+    profiler = traced["profiler_device_ms"]
+    gap = abs(buckets - profiler) / profiler if profiler > 0 else float("inf")
+    say("demo", f"14e trace_forward b8: {traced['forward_ms']:.1f} ms a forward; trace_summary "
+        f"{summary['iterations']} iterations: buckets {buckets:.3f} ms against the profiler's "
+        f"{profiler:.3f} ms of kernel time an iteration ({gap:.2e} apart); "
+        + ", ".join(f"{b} {ms:.3f}" for b, ms in summary["buckets"].items())
+        + f"; hand-written {({k: round(v, 3) for k, v in summary['hand_written'].items()})}; "
+        f"idle share {summary['idle_share']:.4f}, largest gaps {summary['largest_gaps_ms'][:3]} ms")
+    check(summary["source"] == "device" and summary["iterations"] == DEMO_TRACE_ITERS,
+          f"14e: trace summary of {summary['source']}, {summary['iterations']} iterations")
+    check(gap < DEMO_TRACE_REL_TOL, f"14e: buckets {buckets:.3f} ms, profiler {profiler:.3f} ms")
+    check(all(summary["hand_written"].get(k, 0) > 0 for k in ("folded_context_partial",
+                                                             "folded_project")),
+          f"14e: the hand-written bucket holds {summary['hand_written']}")
+
+    reset_counts()
+    rows, _ = run_app(["--quick"], main=profile_breakdown.main)
+    launches["demo profile"] = counts = read_counts()
+    say("demo", f"14f profile_breakdown --quick: full forward {rows['full forward (bf16)']:.3f} "
+        f"ms, no attention {rows['no attention']:.3f} ms at b8; launches {counts}; {smi}")
+    demo_counts("profile_breakdown", counts, 2 + 5)  # best_ms: 2 warm-up, 5 tries
+    return launches
+
+
+def phase_demo(smi: str) -> dict:
+    """Phase 14: 14a-14f in a temporary directory of the checkout."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_demo-",
+                                     dir=RELEASE_DIR.parents[2]) as tmp:
+        root = Path(tmp)
+        launches, release = demo_train(root, smi)
+        launches.update(demo_sample(root, release, smi))
+        launches.update(demo_conditional(root, smi))
+        launches.update(demo_trace(root, smi))
+    torch.cuda.empty_cache()
+    say("demo", f"phase 14 {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false); "
@@ -3351,6 +3566,7 @@ def main() -> int:
     launches.update(launches_128)
     launches.update(phase_parallel(smi, peak_128))
     launches.update(phase_2d(rk4, flagship_train["ms"]))
+    launches.update(phase_demo(smi))
     for name, err in worst_128.items():
         worst[name] = max(worst[name], err)
 

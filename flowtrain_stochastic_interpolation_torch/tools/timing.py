@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
@@ -21,6 +22,22 @@ def best_ms(fn: Callable[[], object], calls: int = 1, warmup: int = 2, tries: in
         end.record()
         end.synchronize()
         best = min(best, start.elapsed_time(end))
+    return best
+
+
+def best_ms_on(device: torch.device, fn: Callable[[], object], warmup: int = 2,
+               tries: int = 5) -> float:
+    """:func:`best_ms` of one call on the card; on the CPU the least, over
+    ``tries``, of the host clock around one call."""
+    if device.type == "cuda":
+        return best_ms(fn, warmup=warmup, tries=tries)
+    for _ in range(warmup):
+        fn()
+    best = float("inf")
+    for _ in range(tries):
+        start = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - start) * 1e3)
     return best
 
 

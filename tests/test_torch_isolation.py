@@ -130,6 +130,14 @@ assert profiling.StepTimer().summary() == {{}}
 decoded = tensorprocessor.decode_with_loaded_embedding(
     torch.zeros(2, 2, 2, 18).numpy(), tensorprocessor.load_embedding(None), device="cpu")
 assert decoded.shape == (2, 2, 2)
+# the sixteenth slice: the demo and trace tools
+from {PACKAGE}.tools import (
+    analyze_cond_demo, build_notebook, eval_samples, export_weights, plot_interpolants,
+    profile_breakdown, sample_from_ckpt, trace_forward, trace_summary, trace_train, train_demo,
+)
+assert "folded_project" in trace_summary.hand_written_kernels()
+assert train_demo.parse_arguments([]).out.endswith("artifacts/torch/train_demo")
+assert plot_interpolants.interpolant_curves("cpu")["LinearInterpolant"]["beta"][-1] == 1.0
 assert not any(n.split(".")[0] in {POISONED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), "modules")
 """
