@@ -283,9 +283,21 @@ Phases, each printed on one flushed line with the seconds since start:
       its buckets within 5% of the profiler's own kernel total, K1 and K2 in
       the hand-written bucket;
    f. ``tools.profile_breakdown --quick``.
+15. training held over many updates, the seventeenth slice's check of the main
+   path (``TRAJ_*``, ``FIXED_EVAL_*``):
+   a. 20 updates of the flagship recipe at 32³ b2, accumulation 1, no dropout,
+      through ``make_train_step``: the card's bf16 path (K1 and K2 4 times a
+      micro-step, the folded backward) against the same weights and draws (t
+      rounded to bf16) in f32 on the card through K1's and K2's plain versions,
+      TF32 off. Every step's loss within 2e-2 relative, and the two total
+      parameter changes at a cosine of 0.98 or more; the per-step differences
+      are printed, and a miss names the first step where the paths part;
+   b. ``tools.fixed_eval`` of the release on 8 batches of 8 volumes at 64³ (a
+      b1 ``make_eval_loss`` a volume, K1 and K2 6 times each), on the kernel
+      path and on the plain versions: the means within 1e-2 relative.
 
 The launch counts are set to 0 just before each main-path run (phases 4a-4c,
-5, 5b, 7, 8, 9, 10, 11, 12 (in each rank), 13 and 14) and read just after it. Then
+5, 5b, 7, 8, 9, 10, 11, 12 (in each rank), 13, 14 and 15) and read just after it. Then
 one JSON line per kernel (``{"kernels": [...]}``), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
@@ -361,6 +373,7 @@ from flowtrain_stochastic_interpolation_torch.tools import (
     analyze_cond_demo,
     eval_samples,
     export_weights,
+    fixed_eval,
     profile_breakdown,
     sample_from_ckpt,
     trace_forward,
@@ -633,6 +646,18 @@ TOY2D_MEAN, TOY2D_MEAN_TOL, TOY2D_SAMPLES = (-0.4, -0.4), 0.15, 8192
 DEMO_STEPS, DEMO_RESUMED, DEMO_COND_STEPS, DEMO_FRAMES = 20, 25, 8, 2
 DEMO_EVALUATIONS, DEMO_SAMPLE_EVALUATIONS = (DEMO_FRAMES - 1) * 2 * 4, (DEMO_FRAMES - 1) * 4
 DEMO_TRACE_ITERS, DEMO_TRACE_REL_TOL = 2, 0.05
+# phase 15 (the seventeenth slice): training held over many updates. 15a: the flagship
+# recipe for TRAJ_STEPS updates at 32³ b2, accumulation 1, no dropout, the card's bf16 path
+# (K1, K2 and the folded backward) against the same weights and draws in f32 on the card
+# through K1's and K2's plain versions, TF32 off. t is rounded to bf16 on both sides: the
+# bf16 model casts t before the Fourier embedding (ROADMAP, known traps). Every step's loss
+# within TRAJ_LOSS_REL_TOL; the two total parameter changes at a cosine of TRAJ_COSINE or
+# more. At 32³, K1 and K2 run at the 32³ and 16³ stages, down and up: 4 times a micro-step.
+# 15b: tools.fixed_eval of the release on FIXED_EVAL_BATCHES batches of 8 at 64³, the
+# kernel path against the plain versions: the means within FIXED_EVAL_REL_TOL.
+TRAJ_STEPS, TRAJ_SIDE, TRAJ_BATCH, TRAJ_PER_STEP, TRAJ_SEED = 20, 32, 2, 4, 1500
+TRAJ_LOSS_REL_TOL, TRAJ_COSINE = 2e-2, 0.98
+FIXED_EVAL_BATCHES, FIXED_EVAL_BATCH, FIXED_EVAL_REL_TOL = 8, 8, 1e-2
 FOLDED = ("folded_context", "folded_project")
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
@@ -3504,6 +3529,133 @@ def phase_demo(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Training held over many updates (the seventeenth slice)
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_folded():
+    """K1 and K2 replaced by their plain versions, which the kernel phases hold
+    them to: the model's folded attention then runs no kernel."""
+    with mock.patch.object(la, "folded_context", la.folded_context_plain), \
+            mock.patch.object(la, "folded_project", la.folded_project_plain):
+        yield
+
+
+def trajectory_feed(cfg) -> list:
+    """``TRAJ_STEPS`` batches and their draws (X1, X0, T) on the card, T rounded
+    to bf16; step ``s`` from a generator seeded ``(TRAJ_SEED, s)``."""
+    table = torch.from_numpy(simplex_embedding(cfg.data.num_categories,
+                                               cfg.data.embedding_dim)).to("cuda")
+    feed = []
+    for step in range(TRAJ_STEPS):
+        gen = folded_generator("cuda", TRAJ_SEED, step)
+        batch = synthetic_geology_batch(gen, TRAJ_BATCH, cfg.data.shape)
+        _, x1, x0, t = objectives._draw_common(gen, batch, table, cfg.training.time_range,
+                                               cfg.training.x1_noise)
+        feed.append((batch, (x1, x0, t.bfloat16().float())))
+    return feed
+
+
+def held_updates(smi: str) -> dict:
+    """15a: ``TRAJ_STEPS`` updates on the kernel path (bf16) and on the plain
+    versions (f32), from the same weights and draws."""
+    base = unconditional_64()
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, dropout=0.0),
+        data=dataclasses.replace(base.data, shape=(TRAJ_SIDE,) * 3, batch_size=TRAJ_BATCH),
+        training=dataclasses.replace(base.training, accumulate_grad_batches=1))
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="float32"))
+    feed = trajectory_feed(cfg)
+    runs, weights = {}, None
+    for side, c, paths in (("kernels", cfg, contextlib.nullcontext), ("plain", f32, plain_folded)):
+        model, tx, state = init_train_state(c, device="cuda")
+        if weights is None:
+            weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(weights)
+        before = torch.cat([p.detach().reshape(-1).float() for p in state.params.values()])
+        train_step = make_train_step(model, tx, c)
+        losses = []
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        reset_counts()
+        with paths():
+            for batch, draws in feed:
+                with mock.patch.object(objectives, "_draw_common", lambda *a, d=draws: (None, *d)):
+                    state, metrics = train_step(state, batch, torch.Generator(device="cuda"))
+                losses.append(metrics["train_loss"])
+            torch.cuda.synchronize()
+        after = torch.cat([p.detach().reshape(-1).float() for p in state.params.values()])
+        runs[side] = dict(losses=[float(v) for v in losses], launches=read_counts(),
+                          seconds=time.perf_counter() - start, change=(after - before).cpu(),
+                          updates=state.opt_state.updates)
+        del model, tx, state, train_step
+        torch.cuda.empty_cache()
+    kernels, plain = runs["kernels"], runs["plain"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(kernels["losses"], plain["losses"])]
+    parted = next((i for i, r in enumerate(rel) if not r <= TRAJ_LOSS_REL_TOL), None)
+    change_cos = cosine(kernels["change"], plain["change"])
+    say("held", f"15a {TRAJ_STEPS} updates of the recipe at {TRAJ_SIDE}³ b{TRAJ_BATCH} "
+        f"(accumulation 1, no dropout, lr {cfg.training.learning_rate:g}, t rounded to bf16): "
+        f"bf16 kernel path {kernels['seconds']:.1f} s, launches {kernels['launches']}; f32 plain "
+        f"versions {plain['seconds']:.1f} s, launches {plain['launches']}; losses "
+        f"{kernels['losses'][0]:.4f} -> {kernels['losses'][-1]:.4f} (plain "
+        f"{plain['losses'][0]:.4f} -> {plain['losses'][-1]:.4f}); per-step relative "
+        f"differences {[float(f'{r:.2e}') for r in rel]} (worst {max(rel):.2e}, tolerance "
+        f"{TRAJ_LOSS_REL_TOL:g}); cosine of the total parameter changes {change_cos:.6f} "
+        f"(mean |change| {float(kernels['change'].abs().mean()):.3e} against "
+        f"{float(plain['change'].abs().mean()):.3e}); {smi}")
+    check(np.isfinite(kernels["losses"] + plain["losses"]).all(), "15a: non-finite loss")
+    check(kernels["updates"] == plain["updates"] == TRAJ_STEPS,
+          f"15a: {kernels['updates']} and {plain['updates']} updates")
+    check(folded_only(kernels["launches"], TRAJ_PER_STEP * TRAJ_STEPS),
+          f"15a: kernel path launches {kernels['launches']}")
+    check(not any(plain["launches"].values()), f"15a: plain path launches {plain['launches']}")
+    if parted is not None:
+        raise SmokeFailure(f"15a: the paths part at step {parted}: loss "
+                           f"{kernels['losses'][parted]:.6f} against {plain['losses'][parted]:.6f}")
+    check(change_cos >= TRAJ_COSINE, f"15a: cosine of the parameter changes {change_cos:.6f}")
+    return {"held updates": kernels["launches"]}
+
+
+def fixed_eval_paths(smi: str) -> dict:
+    """15b: ``tools.fixed_eval`` of the release on the kernel path and on the
+    plain versions."""
+    out = {}
+    for side, paths in (("kernels", contextlib.nullcontext), ("plain", plain_folded)):
+        reset_counts()
+        with paths():
+            result = fixed_eval.evaluate(str(RELEASE_DIR), batches=FIXED_EVAL_BATCHES,
+                                         batch_size=FIXED_EVAL_BATCH, device="cuda")
+        out[side] = (result, read_counts())
+    (kernels, launches), (plain, plain_launches) = out["kernels"], out["plain"]
+    rel = abs(kernels["mean"] - plain["mean"]) / abs(plain["mean"])
+    volumes = FIXED_EVAL_BATCHES * FIXED_EVAL_BATCH
+    say("held", f"15b fixed_eval of the release (step {kernels['step']}, {kernels['storage']}) on "
+        f"{FIXED_EVAL_BATCHES} batches of {FIXED_EVAL_BATCH} at {fixed_eval.SIDE}³: kernel path "
+        f"{kernels['mean']:.6f} ± {kernels['se']:.6f} ({kernels['seconds']:.1f} s, launches "
+        f"{launches}), plain versions {plain['mean']:.6f} ± {plain['se']:.6f} "
+        f"({plain['seconds']:.1f} s); relative difference {rel:.2e} (tolerance "
+        f"{FIXED_EVAL_REL_TOL:g}); {smi}")
+    check(kernels["n"] == plain["n"] == volumes and np.isfinite([kernels["mean"],
+                                                                  plain["mean"]]).all(),
+          f"15b: {kernels['n']} and {plain['n']} volumes, means {kernels['mean']} and {plain['mean']}")
+    check(folded_only(launches, 6 * volumes), f"15b: kernel path launches {launches}")
+    check(not any(plain_launches.values()), f"15b: plain path launches {plain_launches}")
+    check(rel <= FIXED_EVAL_REL_TOL, f"15b: fixed evaluation {kernels['mean']:.6f} against "
+          f"{plain['mean']:.6f} on the plain versions")
+    return {"fixed eval": launches}
+
+
+def phase_held(smi: str) -> dict:
+    """Phase 15: 15a and 15b."""
+    start = time.perf_counter()
+    launches = held_updates(smi)
+    launches.update(fixed_eval_paths(smi))
+    say("held", f"phase 15 {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false); "
@@ -3567,6 +3719,7 @@ def main() -> int:
     launches.update(phase_parallel(smi, peak_128))
     launches.update(phase_2d(rk4, flagship_train["ms"]))
     launches.update(phase_demo(smi))
+    launches.update(phase_held(smi))
     for name, err in worst_128.items():
         worst[name] = max(worst[name], err)
 

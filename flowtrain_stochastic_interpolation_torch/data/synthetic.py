@@ -4,9 +4,14 @@ Port of ``flowtrain_stochastic_interpolation_tpu/data/synthetic.py``: tilted
 and folded stratigraphy under a random topographic surface, up to three
 cross-cutting dike planes, and air above the surface, generated on the
 device. Randomness comes from an explicit ``torch.Generator`` (on the device
-the volumes are made on), so the volumes are not the JAX package's but follow
-the same distributions and conventions: int32 categories in
-``[-1, n_categories - 2]``, with air = -1 (GeoGen's convention).
+the volumes are made on), so the volumes are not the JAX package's. They keep
+its conventions, int32 categories in ``[-1, n_categories - 2]`` with air = -1
+(GeoGen's), and its distribution as far as
+``tests/test_torch_synthetic_stats.py`` holds it: over 256 volumes at 32³
+(and 3072 for each of the stages strata, tilt, fold, dike and topography),
+the mean air fraction within 0.003 of JAX's, the mean number of distinct
+categories per volume within 0.4, the shares of category changes along z and
+along x within 6%, and the category histograms within an L1 distance of 0.12.
 
 The whole batch is generated at once; every random draw carries a leading
 batch axis, so the items are independent.

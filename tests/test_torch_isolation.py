@@ -138,6 +138,10 @@ from {PACKAGE}.tools import (
 assert "folded_project" in trace_summary.hand_written_kernels()
 assert train_demo.parse_arguments([]).out.endswith("artifacts/torch/train_demo")
 assert plot_interpolants.interpolant_curves("cpu")["LinearInterpolant"]["beta"][-1] == 1.0
+# the seventeenth slice: the fixed evaluation and the window means
+from {PACKAGE}.tools import fixed_eval
+assert fixed_eval.window_stats("artifacts/train_demo/metrics.csv")["rows"] == 51
+assert fixed_eval.parse_arguments([]).window == [2500, 2999]
 assert not any(n.split(".")[0] in {POISONED!r} for n in sys.modules if sys.modules[n] is not None)
 print(len(names), "modules")
 """
