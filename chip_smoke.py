@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``flowtrain_stochastic_interpolation_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 16    # phase 16 alone (16c needs four cards)
 
 Phases, each printed on one flushed line with the seconds since start:
 
@@ -296,8 +297,35 @@ Phases, each printed on one flushed line with the seconds since start:
       b1 ``make_eval_loss`` a volume, K1 and K2 6 times each), on the kernel
       path and on the plain versions: the means within 1e-2 relative.
 
+16. the sharded paths where they are needed, the eighteenth slice's main paths
+   (``PHASE16_SEED``, ``COND_SHARDED_*``, ``*_256``):
+   a. ``conditional_64`` at its 64³ with X over 4 ranks (gloo on card 0 with
+      fewer cards, as phase 12): X_loc = 1 at the 4³ stage, whose 5³ ATb towers
+      take their halo of 2 from two ranks each way. Seeded weights, an ensemble
+      of 2 on one ATb (a synthetic volume under the combined mask): one velocity
+      evaluation at bf16 and at f32 compute against the unsharded model on the
+      card (K1 and K2; f32 on the einsum path), at phase 12's tolerances; RK4 over
+      2 frames x 1 substep (4 evaluations) through ``make_spatial_sampler(
+      conditional=True)`` against ``make_sampler(conditional=True)`` from the
+      same x0 and ATb; 2 conditional spatial train steps at b1 (the mask drawn on
+      the global volume, then sharded), the first loss against the unsharded
+      forward's on the same draws; replicas equal, no hand-written kernel;
+   b. the flagship at 256³ b1 from the release, bf16, on one card: K1 and K2 at
+      b1 x 2^24 tokens (the columns of a [1, 2^24, 384] projection) and K3 at b1
+      x 4096 q x 4100 kv (the 16³ stage) against their plain versions, K1 and K2
+      each twice with identical outputs, and timed beside their bounds (K3 also
+      beside ``scaled_dot_product_attention``); one velocity evaluation (K1 and
+      K2 8 times, K3 3 times) and RK4 over 2 frames x 1 substep (4 evaluations),
+      with times and peak memory;
+   c. on four cards or more: the same with X over 4 NCCL ranks, its velocity
+      against 16b's and its decode against 16b's; then 2 sharded b1 train steps
+      plain and with ``remat_blocks`` (a form that does not fit prints the
+      allocator's message; one must fit), the first loss against the unsharded
+      forward's on the same draws, peak memory per rank; with fewer cards it
+      prints that it did not run and why.
+
 The launch counts are set to 0 just before each main-path run (phases 4a-4c,
-5, 5b, 7, 8, 9, 10, 11, 12 (in each rank), 13, 14 and 15) and read just after it. Then
+5, 5b, 7, 8, 9, 10, 11, 12 (in each rank), 13, 14, 15 and 16) and read just after it. Then
 one JSON line per kernel (``{"kernels": [...]}``), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before that last line. Imports nothing of JAX.
@@ -395,6 +423,7 @@ from flowtrain_stochastic_interpolation_torch.train.loop import (
 )
 from flowtrain_stochastic_interpolation_torch.train.shard_map_step import (
     apply_update,
+    global_objective,
     make_spatial_train_step,
     spatial_draws,
 )
@@ -658,6 +687,24 @@ DEMO_TRACE_ITERS, DEMO_TRACE_REL_TOL = 2, 0.05
 TRAJ_STEPS, TRAJ_SIDE, TRAJ_BATCH, TRAJ_PER_STEP, TRAJ_SEED = 20, 32, 2, 4, 1500
 TRAJ_LOSS_REL_TOL, TRAJ_COSINE = 2e-2, 0.98
 FIXED_EVAL_BATCHES, FIXED_EVAL_BATCH, FIXED_EVAL_REL_TOL = 8, 8, 1e-2
+# phase 16 (the eighteenth slice): the sharded paths where they are needed. 16a:
+# conditional_64 at its 64³ with X over 4 ranks (gloo on card 0 where the machine has fewer
+# cards): X_loc 16 at the top stage and 1 at 4³, where the towers' 5³ convs take their halo
+# of 2 from two ranks each way; the velocity of an ensemble of COND_SHARDED_BATCH on one ATb,
+# RK4 over COND_SHARDED_FRAMES frames x 1 substep (4 evaluations), and 2 conditional spatial
+# train steps at b1 (no dropout, EMA on). 16b: the flagship at 256³ b1 from the release
+# (EMA weights, bf16) on one card: one velocity evaluation and RK4 over SHARDED_256_FRAMES
+# frames x 1 substep; K1 and K2 at b1 x 2^24 tokens, K3 at b1 x 4096 x 4100, against their
+# plain versions and timed. 16c, on four cards or more: the same over 4 spatial ranks
+# (NCCL), then 2 sharded b1 train steps plain and with remat_blocks (a form that does not
+# fit fails its ranks with the allocator's message, which is printed).
+PHASE16_SEED = 1600
+COND_SHARDED_BATCH, COND_SHARDED_FRAMES = 2, 2
+SIDE_256, TOKENS_256, SHARDED_256_FRAMES = 256, 256**3, 2
+# launches per 256³ forward: K1 and K2 at the 256³, 128³, 64³ and 32³ stages, down and up;
+# K3 at the 16³ stage (4096 tokens), down and up, and in the middle
+# (tests/test_torch_dispatch_256.py holds this dispatch to JAX's)
+PER_FORWARD_256 = {"folded_context": 8, "folded_project": 8, "flash_attention": 3}
 FOLDED = ("folded_context", "folded_project")
 SOURCES = {
     "folded_context": "flowtrain_stochastic_interpolation_torch/csrc/linear_attention.cu",
@@ -3082,6 +3129,33 @@ def spatial_rank(rank: int) -> dict:
     return out
 
 
+def unsharded_spatial_loss(cfg, labels, mask, n_ranks: int, seed: int) -> float:
+    """The first sharded step's loss, unsharded: ``cfg``'s seeded model on the card
+    (training mode, no dropout) on the draws that each of ``n_ranks`` X slabs of
+    ``labels`` makes at step 0 of ``seed``, through the same objective over one
+    process (``mask``: the conditional loss's, on the global volume)."""
+    plain, _, state = init_train_state(cfg, device="cuda")
+    plain.train()
+    table, tc = state.constants["embedding"], cfg.training
+    seed, x_loc = fold_seed(seed, 0), labels.shape[1] // n_ranks
+    parts = [spatial_draws(seed, labels[:, s * x_loc:(s + 1) * x_loc], table, tc.time_range,
+                           tc.x1_noise, 0, s, train_steps.OBJECTIVE_DTYPES[tc.objective_dtype])
+             for s in range(n_ranks)]
+    x1_clean, x1, x0 = (torch.cat([p[i] for p in parts], dim=1) for i in range(3))
+    t = parts[0][3]
+    del parts
+    xt, vt = LinearInterpolant(one_sided=True).flow_objective(t, x0, x1)
+    del x0
+    with torch.no_grad():
+        loss, _ = global_objective(plain, xt, vt, x1, x1_clean, t, mask,
+                                   conditional=cfg.model.conditional,
+                                   lambda_reconstruct=tc.lambda_reconstruct, world_group=None,
+                                   data_group=None, n_data=1)
+    del plain, state, xt, vt, x1, x1_clean
+    torch.cuda.empty_cache()
+    return float(loss)
+
+
 def phase_spatial(smi: str, peak_128=None) -> dict:
     """12b and 12c: the flagship at 128³ with X sharded over 4 ranks, against the
     unsharded model on the card; ``peak_128`` is 11d's unsharded plain
@@ -3119,21 +3193,7 @@ def phase_spatial(smi: str, peak_128=None) -> dict:
     agree = (cat("decoded") == want).float().mean().item()
     del model
     torch.cuda.empty_cache()
-    plain, _, state = init_train_state(cfg, device="cuda")
-    plain.train()
-    table = state.constants["embedding"]
-    tc = cfg.training
-    seed = fold_seed(PHASE12_SEED, 0)
-    x_loc = SIDE_128 // SPATIAL_RANKS
-    parts = [spatial_draws(seed, labels[:, s * x_loc:(s + 1) * x_loc], table, tc.time_range,
-                           tc.x1_noise, 0, s) for s in range(SPATIAL_RANKS)]
-    _, x1, x0t = (torch.cat([p[i] for p in parts], dim=1) for i in range(3))
-    xt, vt = LinearInterpolant(one_sided=True).flow_objective(parts[0][3], x0t, x1)
-    with torch.no_grad():
-        v_hat = plain(xt, parts[0][3])
-        want_loss = float((v_hat.float() - vt).square().sum() / vt.square().sum())
-    del plain, state, parts, x1, x0t, xt, vt, v_hat
-    torch.cuda.empty_cache()
+    want_loss = unsharded_spatial_loss(cfg, labels, None, SPATIAL_RANKS, PHASE12_SEED)
     loss_err = abs(r0["losses"][0] - want_loss) / abs(want_loss)
 
     mib = lambda n: n / 2**20
@@ -3656,7 +3716,438 @@ def phase_held(smi: str) -> dict:
     return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 16: the sharded paths where they are needed (the eighteenth slice)
+# ---------------------------------------------------------------------------
+def cond_sharded_config():
+    """conditional_64 at its 64³, b1 a step, an update every step, no dropout (the
+    two sides' dropout masks could not be the same draws)."""
+    base = with_model(conditional_64(), dropout=0.0)
+    return dataclasses.replace(
+        base, data=dataclasses.replace(base.data, batch_size=1),
+        training=dataclasses.replace(base.training, accumulate_grad_batches=1))
+
+
+def cond_sharded_inputs(cfg) -> tuple:
+    """16a's x0 ``[2, 64³, E]`` (f32), its ATb (one synthetic volume's observations
+    under the combined mask, for both members), and the train steps' labels
+    ``[1, 64³]`` and their global mask, on the card from ``PHASE16_SEED``."""
+    gen = torch.Generator(device="cuda").manual_seed(PHASE16_SEED)
+    shape, e = cfg.data.shape, cfg.data.embedding_dim
+    x0 = initial_noise(gen, COND_SHARDED_BATCH, shape, e, torch.float32, torch.device("cuda"))
+    atb = observations(gen, cfg, shape[0]).expand(COND_SHARDED_BATCH, *shape, e).contiguous()
+    labels = synthetic_geology_batch(gen, 1, shape)
+    return x0, atb, labels, make_combined_mask(gen, labels)
+
+
+def cond_sharded_model(cfg, group, dtype=None):
+    """16a's seeded conditional model, X-sharded over ``group`` (None: unsharded)."""
+    cfg = cfg if dtype is None else with_model(cfg, dtype=dtype)
+    return init_model_variables(cfg, seed=PHASE16_SEED, device="cuda",
+                                spatial_group=group).eval()
+
+
+def cond_sharded_rank(rank: int) -> dict:
+    """One rank of 16a: the sharded velocity (bf16 and f32 compute), the RK4
+    ensemble and 2 conditional spatial train steps."""
+    exact_f32()
+    mesh = create_mesh(1, SPATIAL_RANKS)
+    cfg = cond_sharded_config()
+    x0, atb, labels, mask = (shard_batch(v, mesh).contiguous() for v in cond_sharded_inputs(cfg))
+    table = torch.from_numpy(simplex_embedding(cfg.data.num_categories,
+                                               cfg.data.embedding_dim)).cuda()
+    t = torch.full((COND_SHARDED_BATCH,), 0.5, device="cuda")
+    out = {}
+    reset_counts()
+    model = cond_sharded_model(cfg, mesh.spatial_group)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model(x0, atb, t)  # cuDNN's set-up
+        torch.cuda.synchronize()
+        collectives.reset_traffic()
+        start = time.perf_counter()
+        v = model(x0, atb, t)
+        torch.cuda.synchronize()
+        out.update(eval_s=time.perf_counter() - start, traffic=dict(collectives.traffic),
+                   v=v.float().cpu())
+        out["v32"] = cond_sharded_model(cfg, mesh.spatial_group, "float32")(x0, atb, t).cpu()
+    ic = cfg.inference
+    sampler = make_spatial_sampler(model, table, mesh, conditional=True, t0=ic.t0, tf=ic.tf,
+                                   n_frames=COND_SHARDED_FRAMES, substeps=1, method="rk4")
+    start = time.perf_counter()
+    res = sampler(x0, atb)
+    out.update(decoded=res["decoded"].cpu(), nfe=res["nfe"], sample_s=time.perf_counter() - start,
+               sample_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model, sampler, res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, tx, state = init_train_state(cfg, device="cuda", mesh=mesh)
+    step = make_spatial_train_step(model, tx, cfg, mesh)
+    out["losses"], out["step_s"] = [], []
+    for _ in range(SPATIAL_STEPS):
+        start = time.perf_counter()
+        state, metrics = step(state, labels, mask, PHASE16_SEED)
+        out["losses"].append(float(metrics["train_loss"]))
+        out["step_s"].append(time.perf_counter() - start)
+    out.update(counts=read_counts(), train_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               params=tensors_hash(state.params.values()),
+               ema=tensors_hash(state.ema_params.values()), card=torch.cuda.current_device())
+    return out
+
+
+def phase_cond_sharded(smi: str) -> dict:
+    """16a: conditional_64 with X over 4 ranks against the unsharded model on the card."""
+    cfg = cond_sharded_config()
+    backend, cards = rank_layout(SPATIAL_RANKS)
+    say("sharded", f"16a conditional_64 at {cfg.data.shape[0]}³, X over {SPATIAL_RANKS} ranks "
+        f"(X_loc {cfg.data.shape[0] // SPATIAL_RANKS} at the top stage, 1 at 4³): "
+        f"{describe_layout(backend, cards)}")
+    start = time.perf_counter()
+    ranks = spawn(cond_sharded_rank, SPATIAL_RANKS, backend=backend, devices=cards,
+                  deadline_s=RANK_DEADLINE_S)
+    wall = time.perf_counter() - start
+    cat = lambda key: torch.cat([r[key] for r in ranks], dim=1)
+
+    # the unsharded references on the card, from the same weights, inputs and draws
+    x0, atb, labels, mask = cond_sharded_inputs(cfg)
+    table = torch.from_numpy(simplex_embedding(cfg.data.num_categories,
+                                               cfg.data.embedding_dim)).cuda()
+    t = torch.full((COND_SHARDED_BATCH,), 0.5, device="cuda")
+    model = cond_sharded_model(cfg, None)
+    with torch.no_grad():
+        v_err = rel_l2(cat("v"), model(x0, atb, t).float().cpu())
+        f32 = cond_sharded_model(cfg, None, "float32")
+        for m in f32.modules():
+            if isinstance(m, LinearAttention):
+                m.fused_folded = False  # the einsum path: no bf16 rounding of p and ctx
+        v32_err = rel_l2(cat("v32"), f32(x0, atb, t).cpu())
+        del f32
+    ic = cfg.inference
+    want = make_sampler(model, table, conditional=True, t0=ic.t0, tf=ic.tf,
+                        n_frames=COND_SHARDED_FRAMES, substeps=1, method="rk4")(x0, atb)
+    agree = (cat("decoded") == want["decoded"].cpu()).float().mean().item()
+    del model, want, x0, atb
+    torch.cuda.empty_cache()
+    want_loss = unsharded_spatial_loss(cfg, labels, mask, SPATIAL_RANKS, PHASE16_SEED)
+    r0 = ranks[0]
+    loss_err = abs(r0["losses"][0] - want_loss) / abs(want_loss)
+    shared = " (ranks share one card: times show correctness, not scaling)" if len(
+        set(cards)) < len(cards) else ""
+    mib = lambda n: n / 2**20
+    say("sharded", f"16a one velocity evaluation of the b{COND_SHARDED_BATCH} ensemble at t = 0.5: "
+        f"bf16 relative L2 {v_err:.3e} against the unsharded forward with K1 and K2 (limit "
+        f"{SPATIAL_BF16_REL_TOL:g}); f32 compute {v32_err:.3e} against the unsharded einsum path "
+        f"(limit {SPATIAL_F32_REL_TOL:g}); per rank: ppermute {mib(r0['traffic']['ppermute']):.2f} "
+        f"MiB, all-reduce {mib(r0['traffic']['all_reduce']):.4f} MiB; {r0['eval_s'] * 1e3:.1f} ms")
+    say("sharded", f"16a RK4 {COND_SHARDED_FRAMES} frames x 1 substep (nfe {r0['nfe']}): "
+        f"{r0['sample_s']:.1f} s, decode agrees with make_sampler(conditional=True) on {agree:.4f} "
+        f"of voxels (limit {SPATIAL_DECODE_AGREEMENT}); peak "
+        + ", ".join(f"{r['sample_peak_gib']:.2f}" for r in ranks) + " GiB per rank")
+    say("sharded", f"16a {SPATIAL_STEPS} conditional spatial train steps at b1: losses "
+        f"{r0['losses']} (first against the unsharded forward's {want_loss:.6f} on the same "
+        f"draws and mask: relative {loss_err:.2e}, limit {SPATIAL_LOSS_REL_TOL:g}); "
+        f"{', '.join(f'{s:.2f}' for s in r0['step_s'])} s a step; peak "
+        + ", ".join(f"{r['train_peak_gib']:.2f}" for r in ranks) + " GiB per rank; params "
+        + ", ".join(r["params"] for r in ranks) + f"; {wall:.1f} s with the ranks' start; "
+        f"{smi}{shared}")
+    check(v_err <= SPATIAL_BF16_REL_TOL and v32_err <= SPATIAL_F32_REL_TOL,
+          f"16a: the sharded conditional velocity is off (bf16 {v_err:.2e}, f32 {v32_err:.2e})")
+    check(agree >= SPATIAL_DECODE_AGREEMENT, f"16a: decode agreement {agree:.4f}")
+    check(r0["nfe"] == 4 * (COND_SHARDED_FRAMES - 1), f"16a: nfe {r0['nfe']}")
+    check(loss_err <= SPATIAL_LOSS_REL_TOL and all(np.isfinite(r0["losses"])),
+          f"16a: the sharded conditional loss is off ({loss_err:.2e})")
+    check(all(r["params"] == r0["params"] and r["ema"] == r0["ema"] for r in ranks),
+          "16a: the replicas' parameters or EMA differ")
+    check(all(not any(r["counts"].values()) for r in ranks),
+          "16a: the sharded path launched a hand-written kernel (JAX's takes none)")
+    return {f"16a conditional sharded rank {i}": r["counts"] for i, r in enumerate(ranks)}
+
+
+def train_256_config(remat_blocks: bool = False):
+    """The flagship at 256³ b1, an update every step, EMA on, no dropout (12c's at 256³)."""
+    cfg = spatial_train_config()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, shape=(SIDE_256,) * 3))
+    return with_model(cfg, remat_blocks=True) if remat_blocks else cfg
+
+
+def inputs_256(release) -> tuple:
+    """16b's and 16c's x0 ``[1, 256³, E]`` (f32) and the train steps' labels
+    ``[1, 256³]``, on the card from ``PHASE16_SEED``."""
+    gen = torch.Generator(device="cuda").manual_seed(PHASE16_SEED + 1)
+    x0 = initial_noise(gen, 1, (SIDE_256,) * 3, release.data.embedding_dim, torch.float32,
+                       torch.device("cuda"))
+    return x0, synthetic_geology_batch(gen, 1, (SIDE_256,) * 3)
+
+
+def kernels_256(smi: str) -> tuple:
+    """16b's kernels: K1 and K2 at b1 x 2^24 tokens and K3 at b1 x 4096 x 4100 against
+    their plain versions (K1, K2 each launched twice, identical) and timed."""
+    n = TOKENS_256
+    gen = torch.Generator(device="cuda").manual_seed(PHASE16_SEED + 2)
+    # drawn in bf16: the [1, 2^24, 384] projection alone is 12 GiB
+    qkv = torch.randn(1, n, 3 * WIDTH, generator=gen, device="cuda", dtype=torch.bfloat16)
+    mem = torch.randn(2, N_MEM, WIDTH, generator=gen, device="cuda", dtype=torch.bfloat16)
+    q, k, v = qkv[..., :WIDTH], qkv[..., WIDTH:2 * WIDTH], qkv[..., 2 * WIDTH:]
+    mk, mv = mem[0].contiguous(), mem[1].contiguous()
+    worst, rows, label = {}, {}, f"b1 x {n}"
+    ctx_plain = la.folded_context_plain(k, v, mk, mv, HEADS)
+    ctx, again = (la.folded_context(k, v, mk, mv, HEADS) for _ in range(2))
+    torch.cuda.synchronize()
+    worst["folded_context"] = compare("folded_context", label, ctx, ctx_plain)
+    check(torch.equal(ctx, again), f"folded_context {label}: a second launch differs")
+    del ctx, again
+    out_plain = la.folded_project_plain(q, ctx_plain, HEADS)
+    out, out_again = (la.folded_project(q, ctx_plain, HEADS) for _ in range(2))
+    torch.cuda.synchronize()
+    worst["folded_project"] = compare("folded_project", label, out, out_plain)
+    check(torch.equal(out, out_again), f"folded_project {label}: a second launch differs")
+    del out, out_again, out_plain
+    torch.cuda.empty_cache()
+    nbytes, flops, exps = context_work(1, n)
+    rows["folded_context"] = timed_row(
+        "folded_context", label, lambda: la.folded_context(k, v, mk, mv, HEADS),
+        lambda: la.folded_context_plain(k, v, mk, mv, HEADS), nbytes, flops, exps=exps)
+    nbytes, flops, exps = project_work(1, n)
+    rows["folded_project"] = timed_row(
+        "folded_project", label, lambda: la.folded_project(q, ctx_plain, HEADS),
+        lambda: la.folded_project_plain(q, ctx_plain, HEADS), nbytes, flops, exps=exps)
+    del qkv, mem, q, k, v, mk, mv, ctx_plain
+    torch.cuda.empty_cache()
+
+    nq, nk = FLASH_TOKENS
+    label = f"b1 x {nq} q x {nk} kv x {HEADS} x {HEAD_DIM}"
+    q, k, v = make_attention_inputs(1, nq, nk, seed=PHASE16_SEED + 3)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    worst["flash_attention"] = compare("flash_attention", label, out, want_out)
+    check_lse(label, lse, want_lse)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows["flash_attention"] = timed_row(
+        "flash_attention", label, lambda: fa.flash_attention_forward(q, k, v),
+        lambda: fa.flash_attention_plain(q, k, v),
+        2 * (2 * nq + 2 * nk) * WIDTH + 4 * HEADS * nq, 4.0 * HEADS * nq * nk * HEAD_DIM,
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt),
+        library_name="scaled_dot_product_attention", exps=HEADS * nq * nk)
+    del q, k, v, out, lse, want_out, want_lse, qt, kt, vt
+    torch.cuda.empty_cache()
+    say("sharded", f"16b kernels at the 256³ flagship's shapes held to their plain versions; {smi}")
+    return rows, worst
+
+
+def phase_256(smi: str) -> tuple:
+    """16b: the flagship at 256³ b1 unsharded on one card, from the release: one
+    velocity evaluation and a cut RK4 sample, with the launches of K1, K2 and K3."""
+    rows, worst = kernels_256(smi)
+    release = unconditional_64()
+    x0, _ = inputs_256(release)
+    table = torch.from_numpy(simplex_embedding(release.data.num_categories,
+                                               release.data.embedding_dim)).cuda()
+    t = torch.full((1,), 0.5, device="cuda")
+    model = release_sharded(release, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model(x0, t)  # cuDNN's set-up
+        torch.cuda.synchronize()
+        reset_counts()
+        start = time.perf_counter()
+        v = model(x0, t)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - start
+        eval_counts = read_counts()
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    v = v.float().cpu()
+    check(bool(torch.isfinite(v).all()), "16b: non-finite velocity")
+    ic = release.inference
+    sampler = make_sampler(model, table, t0=ic.t0, tf=ic.tf, n_frames=SHARDED_256_FRAMES,
+                           substeps=1, method="rk4")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    res = sampler(x0)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - start
+    sample_counts = read_counts()
+    sample_peak = torch.cuda.max_memory_allocated() / 2**30
+    decoded = res["decoded"].cpu()
+    nfe = res["nfe"]
+    fractions = np.bincount(decoded.numpy().ravel(), minlength=release.data.num_categories)
+    say("sharded", f"16b the release at 256³ b1 on one card, bf16: one velocity evaluation "
+        f"{eval_s * 1e3:.1f} ms at a {eval_peak:.2f} GiB peak, launches {eval_counts}; RK4 "
+        f"{SHARDED_256_FRAMES} frames x 1 substep (nfe {nfe}) {sample_s:.2f} s "
+        f"({sample_s / nfe * 1e3:.1f} ms per evaluation), peak {sample_peak:.2f} GiB, launches "
+        f"{sample_counts}; decoded {tuple(decoded.shape)}, air {fractions[0] / decoded.numel():.4f} "
+        f"of voxels; {smi}")
+    per_forward = lambda k: {name: PER_FORWARD_256.get(name, 0) * k for name in KERNELS}
+    check(eval_counts == per_forward(1), f"16b forward: launches {eval_counts}, expected "
+          f"{per_forward(1)}")
+    check(nfe == 4 * (SHARDED_256_FRAMES - 1) and sample_counts == per_forward(nfe),
+          f"16b sample: nfe {nfe}, launches {sample_counts}")
+    check(decoded.shape == (1, *[SIDE_256] * 3) and int(decoded.min()) >= 0
+          and int(decoded.max()) < release.data.num_categories, "16b: decoded volume")
+    del model, sampler, res, x0
+    torch.cuda.empty_cache()
+    launches = {"16b 256 forward": eval_counts, "16b 256 sample": sample_counts}
+    return launches, rows, worst, dict(v=v, decoded=decoded, eval_s=eval_s, eval_peak=eval_peak,
+                                       sample_s=sample_s, nfe=nfe)
+
+
+def eval_256_rank(rank: int) -> dict:
+    """One rank of 16c: the release at 256³ with X over 4 ranks, one velocity
+    evaluation and the cut RK4 sample."""
+    exact_f32()
+    mesh = create_mesh(1, SPATIAL_RANKS)
+    release = unconditional_64()
+    x0, _ = inputs_256(release)
+    x0 = shard_batch(x0, mesh).contiguous()
+    table = torch.from_numpy(simplex_embedding(release.data.num_categories,
+                                               release.data.embedding_dim)).cuda()
+    t = torch.full((1,), 0.5, device="cuda")
+    model = release_sharded(release, mesh.spatial_group)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    with torch.no_grad():
+        model(x0, t)  # cuDNN's set-up
+        torch.cuda.synchronize()
+        collectives.reset_traffic()
+        start = time.perf_counter()
+        v = model(x0, t)
+        torch.cuda.synchronize()
+        out.update(eval_s=time.perf_counter() - start, traffic=dict(collectives.traffic),
+                   v=v.float().cpu(), eval_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del v
+    ic = release.inference
+    sampler = make_spatial_sampler(model, table, mesh, t0=ic.t0, tf=ic.tf,
+                                   n_frames=SHARDED_256_FRAMES, substeps=1, method="rk4")
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    res = sampler(x0)
+    torch.cuda.synchronize()
+    out.update(decoded=res["decoded"].cpu(), nfe=res["nfe"], sample_s=time.perf_counter() - start,
+               sample_peak_gib=torch.cuda.max_memory_allocated() / 2**30, counts=read_counts(),
+               card=torch.cuda.current_device())
+    return out
+
+
+def train_256_rank(rank: int, remat_blocks: bool) -> dict:
+    """One rank of 16c: SPATIAL_STEPS sharded train steps of the flagship at 256³ b1."""
+    exact_f32()
+    mesh = create_mesh(1, SPATIAL_RANKS)
+    cfg = train_256_config(remat_blocks)
+    _, labels = inputs_256(unconditional_64())
+    labels = shard_batch(labels, mesh).contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    model, tx, state = init_train_state(cfg, device="cuda", mesh=mesh)
+    step = make_spatial_train_step(model, tx, cfg, mesh)
+    reset_counts()
+    losses, step_s = [], []
+    for _ in range(SPATIAL_STEPS):
+        start = time.perf_counter()
+        state, metrics = step(state, labels, None, PHASE16_SEED)
+        losses.append(float(metrics["train_loss"]))
+        step_s.append(time.perf_counter() - start)
+    return dict(losses=losses, step_s=step_s, counts=read_counts(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                params=tensors_hash(state.params.values()),
+                ema=tensors_hash(state.ema_params.values()))
+
+
+def phase_256_sharded(smi: str, unsharded: dict) -> dict:
+    """16c, on four cards or more: the release at 256³ with X over 4 NCCL ranks against
+    16b's unsharded evaluation and decode; then 2 sharded train steps, plain and with
+    remat_blocks, the first loss against the unsharded forward's on the same draws."""
+    if torch.cuda.device_count() < SPATIAL_RANKS:
+        say("sharded", f"16c not run: {torch.cuda.device_count()} card(s); it needs "
+            f"{SPATIAL_RANKS}, one a rank (4 ranks on one card would need about 4 x 21 GiB for "
+            "a sample, scaled from 12b's peak a rank)")
+        return {}
+    backend, cards = rank_layout(SPATIAL_RANKS)
+    say("sharded", f"16c the flagship at 256³ b1, X over {SPATIAL_RANKS} ranks: "
+        f"{describe_layout(backend, cards)}")
+    start = time.perf_counter()
+    ranks = spawn(eval_256_rank, SPATIAL_RANKS, backend=backend, devices=cards,
+                  deadline_s=RANK_DEADLINE_S)
+    wall = time.perf_counter() - start
+    r0 = ranks[0]
+    cat = lambda key: torch.cat([r[key] for r in ranks], dim=1)
+    v_err = rel_l2(cat("v"), unsharded["v"])
+    agree = (cat("decoded") == unsharded["decoded"]).float().mean().item()
+    mib = lambda n: n / 2**20
+    say("sharded", f"16c one velocity evaluation at t = 0.5: bf16 relative L2 {v_err:.3e} "
+        f"against 16b's (limit {SPATIAL_BF16_REL_TOL:g}); "
+        + ", ".join(f"{r['eval_s'] * 1e3:.1f}" for r in ranks) + " ms per rank (16b on one "
+        f"card: {unsharded['eval_s'] * 1e3:.1f} ms); per rank: ppermute "
+        f"{mib(r0['traffic']['ppermute']):.2f} MiB, all-reduce "
+        f"{mib(r0['traffic']['all_reduce']):.4f} MiB; peak "
+        + ", ".join(f"{r['eval_peak_gib']:.2f}" for r in ranks) + f" GiB per rank (16b: "
+        f"{unsharded['eval_peak']:.2f})")
+    say("sharded", f"16c RK4 {SHARDED_256_FRAMES} frames x 1 substep (nfe {r0['nfe']}): "
+        f"{r0['sample_s']:.2f} s (16b: {unsharded['sample_s']:.2f}), decode agrees with 16b's on "
+        f"{agree:.4f} of voxels (limit {SPATIAL_DECODE_AGREEMENT}); peak "
+        + ", ".join(f"{r['sample_peak_gib']:.2f}" for r in ranks) + f" GiB per rank; {wall:.1f} s "
+        f"with the ranks' start; {smi}")
+    check(v_err <= SPATIAL_BF16_REL_TOL, f"16c: the sharded velocity is off ({v_err:.2e})")
+    check(agree >= SPATIAL_DECODE_AGREEMENT, f"16c: decode agreement {agree:.4f}")
+    launches = {f"16c 256 sharded sample rank {i}": r["counts"] for i, r in enumerate(ranks)}
+
+    _, labels = inputs_256(unconditional_64())
+    want_loss = unsharded_spatial_loss(train_256_config(), labels, None, SPATIAL_RANKS,
+                                       PHASE16_SEED)
+    del labels
+    torch.cuda.empty_cache()
+    fitted = 0
+    for form, remat_blocks in (("plain", False), ("remat_blocks", True)):
+        start = time.perf_counter()
+        try:
+            ranks = spawn(train_256_rank, SPATIAL_RANKS, (remat_blocks,), backend=backend,
+                          devices=cards, deadline_s=RANK_DEADLINE_S)
+        except Exception as exc:  # a rank's error: the form does not fit, or a fault
+            text = str(exc)
+            if "out of memory" not in text.lower():
+                raise
+            lines = [line for line in text.splitlines() if "out of memory" in line.lower()]
+            say("sharded", f"16c {form} train step at 256³ b1 does not fit a card: "
+                f"{lines[-1].strip() if lines else text[-400:]}")
+            continue
+        wall = time.perf_counter() - start
+        fitted += 1
+        r0 = ranks[0]
+        loss_err = abs(r0["losses"][0] - want_loss) / abs(want_loss)
+        say("sharded", f"16c {SPATIAL_STEPS} sharded {form} train steps at 256³ b1: losses "
+            f"{r0['losses']} (first against the unsharded forward's {want_loss:.6f} on the same "
+            f"draws: relative {loss_err:.2e}, limit {SPATIAL_LOSS_REL_TOL:g}); "
+            f"{', '.join(f'{s:.2f}' for s in r0['step_s'])} s a step; peak "
+            + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB per rank; params "
+            + ", ".join(r["params"] for r in ranks) + f"; {wall:.1f} s with the ranks' start; {smi}")
+        check(loss_err <= SPATIAL_LOSS_REL_TOL, f"16c {form}: the sharded loss is off "
+              f"({loss_err:.2e})")
+        check(all(r["params"] == r0["params"] and r["ema"] == r0["ema"] for r in ranks),
+              f"16c {form}: the replicas' parameters or EMA differ")
+        launches.update({f"16c 256 {form} train rank {i}": r["counts"] for i, r in enumerate(ranks)})
+    check(fitted > 0, "16c: no form of the 256³ train step fits a card")
+    check(all(not any(c.values()) for c in launches.values()),
+          "16c: the sharded path launched a hand-written kernel (JAX's takes none)")
+    return launches
+
+
+def phase_sharded(smi: str) -> tuple:
+    """Phase 16: 16a, 16b and 16c."""
+    start = time.perf_counter()
+    launches = phase_cond_sharded(smi)
+    launches_256, rows, worst, unsharded = phase_256(smi)
+    launches.update(launches_256)
+    launches.update(phase_256_sharded(smi, unsharded))
+    say("sharded", f"phase 16 {time.perf_counter() - start:.1f} s")
+    return launches, rows, worst
+
+
+def main(argv: list) -> int:
+    sharded_only = argv == ["--phase", "16"]
+    if argv and not sharded_only:
+        print("usage: python3 chip_smoke.py [--phase 16]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false); "
               "this script runs only on a card", file=sys.stderr)
@@ -3669,12 +4160,21 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    builds = cuda_build.load_all([la.SOURCE, fa.SOURCE, tc.SOURCE, gp.SOURCE])
+    builds = cuda_build.load_all([la.SOURCE, fa.SOURCE] if sharded_only
+                                 else [la.SOURCE, fa.SOURCE, tc.SOURCE, gp.SOURCE])
     for name, build in builds.items():
         say("build", f"nvcc {build.seconds:.1f} s -> {build.path.name}")
         for line in build.log.splitlines():
             if any(word in line for word in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"    {line.strip()}", flush=True)
+    if sharded_only:  # phase 16 alone, on as many cards as the machine has
+        launches, rows, worst = phase_sharded(smi)
+        print(json.dumps({"phase16": {"rows": rows, "max_abs_err": worst,
+                                      "launches": launches}}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": count}}), flush=True)
+        return 0
 
     worst = phase_kernel_check()
     rows = phase_kernel_times()
@@ -3720,7 +4220,9 @@ def main() -> int:
     launches.update(phase_2d(rk4, flagship_train["ms"]))
     launches.update(phase_demo(smi))
     launches.update(phase_held(smi))
-    for name, err in worst_128.items():
+    launches_16, rows_256, worst_256 = phase_sharded(smi)
+    launches.update(launches_16)
+    for name, err in (*worst_128.items(), *worst_256.items()):
         worst[name] = max(worst[name], err)
 
     kernels = []
@@ -3740,6 +4242,10 @@ def main() -> int:
         if name in rows_128:  # the 128³ stage: b1 x 2^21 tokens
             kernels[-1]["b1_2097152"] = {key: rows_128[name][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by")}
+        if name in rows_256:  # the 256³ flagship: K1, K2 at b1 x 2^24, K3 at b1 x 4096
+            shape = "b1_4096" if name == "flash_attention" else "b1_16777216"
+            kernels[-1][shape] = {key: rows_256[name][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
@@ -3749,7 +4255,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as exc:
         say("FAILED", str(exc))
         sys.exit(1)

@@ -4,8 +4,8 @@
 The ranks (``tests/torch_parallel_cases.py::primitives``, spawned once for the
 file, one torch thread each) run ``halo_conv3d`` at 3³ and 7³,
 ``sharded_resize3d`` at ×2 and ×0.5, ``ring_attention`` and
-``sharded_linear_attention`` with memory K/V, and the gradients of each; the
-JAX side runs ``parallel/spatial.py`` on 4 of the 8 CPU devices, jitted.
+``sharded_linear_attention`` with memory K/V, and the gradients of each, and
+convs whose halo is wider than the slab (one X plane a rank); the JAX side runs ``parallel/spatial.py`` on 4 of the 8 CPU devices, jitted.
 Tolerances, f32 rounding: the convs and attention to 1e-5 of the largest
 value compared (a 7³ conv sums 1,715 products per output); the resize to 8
 ulps of the input's largest value (each output mixes at most 8 inputs, and
@@ -145,8 +145,25 @@ def test_sharded_attention_matches_jax_and_the_unsharded_attention(ranks, name):
 
 
 def test_halo_wider_than_the_slab_raises(ranks):
-    assert all(r["halo_raises"] for r in ranks)
-    # the check runs before any collective, so one process sees it too
-    with pytest.raises(ValueError, match="wider than the local slab"):
-        halo_exchange(torch.zeros(1, 2, 2, 2, 1), None, 3)
+    """A halo wider than the slab no longer raises: it reaches over as many ranks
+    as it needs and gives the unsharded conv; JAX's ``halo_exchange`` raises
+    there (its boundary slices run past the slab)."""
+    wide = cases.normal(3, cases.WIDE_X)
+    want = F.pad(wide, (0, 0, 0, 0, 0, 0, 6, 6)).numpy()  # zeros past the global edges
+    for r, res in enumerate(ranks):
+        np.testing.assert_array_equal(res["wide_halo"].numpy(), want[:, r:r + 13])
+    for k in (5, 7):
+        x, w, b, cot = cases.wide_conv_inputs(k)
+        want, grads = unsharded_conv(x, w, b, cot)
+        close(joined(ranks, f"wide{k}"), want)
+        close(torch.cat([r[f"wide{k}_grads"][0] for r in ranks], dim=1).numpy(), grads[0])
+        for i in (1, 2):
+            close(summed(ranks, f"wide{k}_grads", i), grads[i])
+        with pytest.raises(TypeError, match="slice"):  # JAX slices past its slab
+            jax_sharded(lambda xs, ws, bs: jax_halo_conv3d(xs, ws, bs, "spatial"),
+                        jnp.asarray(x.numpy()), jnp.asarray(w.permute(2, 3, 4, 1, 0).numpy()),
+                        jnp.asarray(b.numpy()), sharded=(True, False, False))
+    # one process: the halo is all zeros
+    assert torch.equal(halo_exchange(torch.ones(1, 2, 2, 2, 1), None, 3),
+                       F.pad(torch.ones(1, 2, 2, 2, 1), (0, 0, 0, 0, 0, 0, 3, 3)))
     assert halo_exchange(torch.ones(1, 2, 2, 2, 1), None, 2).shape == (1, 6, 2, 2, 1)

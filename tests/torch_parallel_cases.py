@@ -43,6 +43,7 @@ from flowtrain_stochastic_interpolation_torch.train.steps import (
 
 SPATIAL = 4
 CONV_X = (2, 16, 8, 8, 5)        # the JAX spatial tests' conv input
+WIDE_X = (2, 4, 6, 6, 5)         # X_loc = 1 on 4 ranks: every halo wider than the slab
 ATTN = (2, 32, 2, 4)             # [B, N, H, D]: 8 tokens a shard
 N_MEM = 4
 UNET_KW = dict(dim=8, dim_mults=(1, 2), data_channels=6, dropout=0.0, time_resolution=16,
@@ -69,6 +70,15 @@ def conv_inputs(k: int):
     return x, w, b, cot
 
 
+def wide_conv_inputs(k: int):
+    """``conv_inputs`` on a volume of X = 4: one plane a rank on 4 ranks."""
+    x = normal(4, WIDE_X)
+    w = normal(14 + k, (6, 5, k, k, k), 0.1)
+    b = normal(24 + k, (6,))
+    cot = normal(34 + k, WIDE_X[:4] + (6,))
+    return x, w, b, cot
+
+
 def attention_inputs():
     q, k, v = (normal(40 + i, ATTN) for i in range(3))
     mk, mv = (normal(50 + i, (ATTN[0], N_MEM, ATTN[2], ATTN[3])) for i in range(2))
@@ -81,8 +91,8 @@ def _grad_leaves(*tensors):
 
 def primitives(rank: int) -> dict:
     """halo_conv3d (3³, 7³), sharded_resize3d (×2, ×0.5), ring_attention and
-    sharded_linear_attention with memory K/V, forward and gradients, and the
-    halo check; 4 spatial ranks."""
+    sharded_linear_attention with memory K/V, forward and gradients; then the
+    5³ and 7³ convs and a halo of 6 with one X plane a rank; 4 spatial ranks."""
     torch.manual_seed(0)
     group = dist.group.WORLD
     out = {}
@@ -108,11 +118,15 @@ def primitives(rank: int) -> dict:
         (y * block(cot, rank, SPATIAL)).sum().backward()
         out[name] = y.detach()
         out[f"{name}_grads"] = [t.grad for t in leaves]
-    try:
-        halo_exchange(torch.zeros(1, 4, 2, 2, 1), group, 5)
-        out["halo_raises"] = False
-    except ValueError:
-        out["halo_raises"] = True
+    # halos wider than the slab: X_loc = 1, the 5³ and 7³ convs reach over 2 and 3 ranks
+    for k in (5, 7):
+        x, w, b, cot = wide_conv_inputs(k)
+        xs, ws, bs = _grad_leaves(block(x, rank, SPATIAL), w, b)
+        y = halo_conv3d(xs, ws, bs, group)
+        (y * block(cot, rank, SPATIAL)).sum().backward()
+        out[f"wide{k}"] = y.detach()
+        out[f"wide{k}_grads"] = [xs.grad, ws.grad, bs.grad]
+    out["wide_halo"] = halo_exchange(block(normal(3, WIDE_X), rank, SPATIAL), group, 6)
     return out
 
 
@@ -209,6 +223,66 @@ def train_cases(rank: int, uncond: tuple, cond: tuple, spatial: tuple) -> dict:
         state, metrics = step(state, local_labels, local_mask, 9)
     out["spatial_replica"] = {"params": _params(state), "ema": dict(state.ema_params),
                               "loss": metrics["train_loss"]}
+    return out
+
+
+def _fed_draws(draws: dict, current: dict):
+    """A stand-in for ``shard_map_step.spatial_draws`` that hands back the draws
+    fed for ``(current["step"], di, si)``."""
+    def fed(seed, labels, table, time_range, x1_noise, di, si, dtype=None):
+        return draws[(current["step"], di, si)]
+    return fed
+
+
+def spatial_jax_cases(rank: int, spatial: list, samplers: list) -> dict:
+    """4 ranks. ``spatial``: ``(name, kind, config, (n_data, n_spatial), labels, mask,
+    draws)`` cases, ``kind`` "loss" (``make_spatial_loss_and_grad``, one call) or
+    "steps" (``make_spatial_train_step``, one call per step of ``draws``, whose keys
+    are ``(step, di, si)``), the spatial draws fed in place of the port's own.
+    ``samplers``: ``(name, config, x0, atb)``, through ``make_spatial_sampler`` on a
+    1 x 4 mesh at the config's inference settings, with prominence. The weights are each
+    config's seeded ones (``init_train_state``)."""
+    from unittest import mock
+
+    from flowtrain_stochastic_interpolation_torch.ops.embedding import simplex_embedding
+    from flowtrain_stochastic_interpolation_torch.train import shard_map_step
+    from flowtrain_stochastic_interpolation_torch.train.loop import init_model_variables
+
+    torch.manual_seed(0)
+    out = {}
+    for name, kind, cfg, (n_data, n_spatial), labels, mask, draws in spatial:
+        mesh = create_mesh(n_data, n_spatial)
+        model, tx, state = init_train_state(cfg, device="cpu", mesh=mesh)
+        local_labels = shard_batch(labels, mesh)
+        local_mask = None if mask is None else shard_batch(mask, mesh)
+        current = {"step": 0}
+        with mock.patch.object(shard_map_step, "spatial_draws", _fed_draws(draws, current)):
+            if kind == "loss":
+                loss, metrics, grads = shard_map_step.make_spatial_loss_and_grad(
+                    model, cfg, mesh)(state, local_labels, local_mask, 0)
+                out[name] = {"loss": loss, "metrics": metrics, "grads": grads}
+                continue
+            step = shard_map_step.make_spatial_train_step(model, tx, cfg, mesh)
+            history = []
+            for s in range(len({k[0] for k in draws})):
+                current["step"] = s
+                state, metrics = step(state, local_labels, local_mask, 0)
+                history.append({k: v.clone() for k, v in metrics.items()})
+        out[name] = {"history": history, "params": _params(state),
+                     "ema": dict(state.ema_params), "step": state.step}
+    mesh = create_mesh(1, SPATIAL)
+    for name, cfg, x0, atb in samplers:
+        model = init_model_variables(cfg, device="cpu", spatial_group=mesh.spatial_group)
+        table = torch.from_numpy(simplex_embedding(cfg.data.num_categories,
+                                                   cfg.data.embedding_dim))
+        ic = cfg.inference
+        sampler = make_spatial_sampler(model, table, mesh, conditional=cfg.model.conditional,
+                                       t0=ic.t0, tf=ic.tf, n_frames=ic.n_frames,
+                                       substeps=ic.substeps, method=ic.method,
+                                       with_prominence=True)
+        args = (x0,) + (() if atb is None else (atb,))
+        res = sampler(*(shard_batch(a, mesh) for a in args))
+        out[name] = {"decoded": res["decoded"], "prominence": res["prominence"]}
     return out
 
 
